@@ -1,0 +1,374 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (kinpoly_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, one line each with its seconds:
+  1. device   needs a CUDA device; prints the card's name and power limit
+  2. build    compiles the CUDA kernels (one nvcc call, sm_90a)
+  3. kernels  builds the inputs of every kernel from one real substep of
+              2048 envs, runs each kernel's wrapper and its plain PyTorch
+              version on them, checks the error against the JAX tests'
+              tolerances, and times kernel, plain version, bound and the
+              nearest single PyTorch call
+  4. slice    loads the trained UHC checkpoint iter_13000.p and evaluates
+              it for 60 control steps on 24 seeded clips of 120 frames (one
+              env per clip) through the kernels, with the launch counters
+              set to 0 just before and read just after; every state must
+              be finite
+  5. parity   one control step of 4 envs on the card (float32, kernels)
+              against the plain path on the CPU (float64)
+Then a JSON line with every kernel's numbers, the card's nvidia-smi line,
+and as the last line {"ok": true, "device": {...}}. Any failure exits
+non-zero before that line; a watchdog ends the run past 10 minutes.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import threading
+import time
+
+import numpy as np
+
+WATCHDOG_S = 600
+N_ENVS = 2048                 # kernel checks: envs of the captured substep
+SLICE_CLIPS, SLICE_FRAMES, SLICE_STEPS = 24, 120, 60
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
+F32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
+# tolerances of the JAX package's own kernel tests
+LTDL_ATOL = 1e-3              # tests/test_pallas_ltdl.py:48,60
+PGS_RTOL, PGS_ATOL = 2e-4, 2e-5   # tests/test_pallas_pgs.py:69
+SOLVE_RTOL = 1e-4             # K2 on the substep's own right-hand sides, / max |x|
+PARITY_ATOL = 1e-3            # qpos/qvel after one control step, f32 vs f64
+T0 = time.perf_counter()
+
+
+def say(phase: str, msg: str, t_phase: float) -> None:
+    print(f"[{phase}] {msg} ({time.perf_counter() - t_phase:.2f} s, "
+          f"total {time.perf_counter() - T0:.1f} s)", flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def _expire() -> None:
+    print(f"FAILED: watchdog, still running after {WATCHDOG_S} s",
+          file=sys.stderr, flush=True)
+    os._exit(124)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds of fn() on the card, CUDA events, after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(n_bytes: float, n_flop: float) -> tuple[float, str]:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_flop / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def random_psor_system(n: int, k: int, seed: int):
+    """Seeded SPD contact systems A = J J^T + 0.5 I with the engine's
+    regularisation, ~30% inactive blocks (float32, bool active): the
+    construction of tests/test_pallas_pgs.py, with the main path's block
+    mix of 12 floor blocks (mu = 1) then 6 frictionless limit blocks."""
+    rng = np.random.RandomState(seed)
+    c = 3 * k
+    J = rng.randn(n, c, 40)
+    A = J @ np.swapaxes(J, -1, -2) + np.eye(c) * 0.5
+    rhs = rng.randn(n, c)
+    d = np.repeat(rng.uniform(0.85, 0.95, (n, k)), 3, -1)
+    active = rng.rand(n, k) > 0.3
+    R = (1 - d) / d * np.diagonal(A, axis1=-2, axis2=-1)
+    R = np.where(np.repeat(active, 3, -1), R, 1e8)
+    A3 = A.reshape(n, k, 3, k, 3)
+    D = np.stack([A3[:, i, :, i, :] for i in range(k)], axis=1)
+    D = D + R.reshape(n, k, 3)[..., None] * np.eye(3) + 1e-9 * np.eye(3)
+    f32 = lambda x: np.ascontiguousarray(x, dtype=np.float32)
+    return (f32(A), f32(rhs), f32(np.linalg.inv(D)), f32(R),
+            f32(np.broadcast_to(np.where(np.arange(k) < 12, 1.0, 0.0),
+                                (n, k))), active)
+
+
+def capture_substep(model, n: int, seed: int):
+    """Run one substep of n envs and record the arguments of every kernel
+    wrapper call (the engine calls them through their modules)."""
+    import torch
+    from kinpoly_tpu_torch.anim.spec import standing_pose
+    from kinpoly_tpu_torch.physics import engine as eng
+    from kinpoly_tpu_torch.physics import ltdl_cuda, pgs_cuda
+
+    calls = {"factor": [], "solve": [], "pgs": []}
+    orig = (ltdl_cuda.factor, ltdl_cuda.solve, pgs_cuda.pgs_solve)
+
+    def rec(key, fn):
+        def wrapped(*args, **kw):
+            calls[key].append((args, kw))
+            return fn(*args, **kw)
+        return wrapped
+
+    rng = np.random.RandomState(seed)
+    q0, _ = standing_pose(model.spec)
+    qpos = np.repeat(q0[None], n, axis=0)
+    qpos[:, 7:] += rng.uniform(-0.3, 0.3, (n, 69))
+    qpos[:, 2] -= rng.uniform(0.0, 0.02, n)
+    qvel = rng.normal(0, 0.5, (n, 75))
+    t = lambda x: torch.as_tensor(x, dtype=model.dtype, device=model.device)
+    state = eng.SimState(t(qpos), t(qvel))
+    action = t(rng.normal(0, 0.3, (n, 75)))
+    base_rot = t(np.asarray([0.7071, 0.7071, 0.0, 0.0], np.float32))
+    plan = eng.build_contact_plan(model, state.qpos)
+    ltdl_cuda.factor = rec("factor", orig[0])
+    ltdl_cuda.solve = rec("solve", orig[1])
+    pgs_cuda.pgs_solve = rec("pgs", orig[2])
+    try:
+        out = eng.substep(model, state, action[:, :69], action[:, 69:],
+                          t(qpos[:, 7:]), base_rot, plan)
+    finally:
+        ltdl_cuda.factor, ltdl_cuda.solve, pgs_cuda.pgs_solve = orig
+    torch.cuda.synchronize()
+    if not (torch.isfinite(out.qpos).all() and torch.isfinite(out.qvel).all()):
+        fail("capture substep produced non-finite state")
+    return calls
+
+
+def main() -> None:
+    watchdog = threading.Timer(WATCHDOG_S, _expire)
+    watchdog.daemon = True
+    watchdog.start()
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+
+    # 1. device -----------------------------------------------------------
+    tp = time.perf_counter()
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: no CUDA device")
+    # the port under test is the one in this checkout, never one found
+    # elsewhere on the path
+    if not os.path.isdir(os.path.join(here, "kinpoly_tpu_torch")):
+        fail(f"no kinpoly_tpu_torch/ beside this script in {here}")
+    import kinpoly_tpu_torch
+    if os.path.dirname(os.path.dirname(os.path.abspath(
+            kinpoly_tpu_torch.__file__))) != here:
+        fail(f"imported kinpoly_tpu_torch from {kinpoly_tpu_torch.__file__}, "
+             f"not from {here}")
+    from kinpoly_tpu_torch import native, resolve_device
+    from kinpoly_tpu_torch.physics import engine as eng
+    from kinpoly_tpu_torch.physics import contact as ct
+    from kinpoly_tpu_torch.physics import ltdl, ltdl_cuda, pgs_cuda
+    from kinpoly_tpu_torch.anim.spec import synthetic_spec
+    from kinpoly_tpu_torch.config.defaults import uhc_control_params
+    from kinpoly_tpu_torch.scripts.eval_uhc import build_agent
+
+    device = resolve_device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if smi.returncode != 0 or not smi.stdout.strip():
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    smi_line = smi.stdout.strip().splitlines()[0]
+    name = torch.cuda.get_device_name(0)
+    say("device", f"{name} x{torch.cuda.device_count()}; nvidia-smi: {smi_line}; "
+        f"torch {torch.__version__} cuda {torch.version.cuda}", tp)
+
+    # 2. build ------------------------------------------------------------
+    tp = time.perf_counter()
+    so, nvcc_s = native.build()
+    native.library()
+    say("build", f"{so.name}: nvcc {nvcc_s:.2f} s", tp)
+
+    # 3. kernels against their plain versions -----------------------------
+    tp = time.perf_counter()
+    spec = synthetic_spec()
+    model = eng.build_model(spec, uhc_control_params(spec), device=device)
+    topo = model.topo
+    calls = capture_substep(model, N_ENVS, 0)
+    if [len(calls[k]) for k in ("factor", "solve", "pgs")] != [2, 2, 1]:
+        fail(f"a substep made {[len(v) for v in calls.values()]} kernel calls")
+    nv = topo.nv
+    depth = topo.depth.astype(float)
+    kernels = []
+
+    # K1: both systems a substep factors (M + Kd dt, then M)
+    Rs = [c[0][1] for c in calls["factor"]]
+    err1 = max(float((ltdl_cuda.factor(topo, R) - ltdl.factor(topo, R)).abs().max())
+               for R in Rs)
+    R = Rs[0]
+    k1_ms = cuda_ms(lambda: ltdl_cuda.factor(topo, R), 50)
+    k1_plain = cuda_ms(lambda: ltdl.factor(topo, R), 5)
+    dense = ltdl.unpack(topo, R)
+    k1_lib = cuda_ms(lambda: torch.linalg.cholesky_ex(dense), 20)
+    flop1 = N_ENVS * float(np.sum(depth * (depth + 1) + 2 * depth))
+    # only the depth + 1 live slots of each packed row are read and written;
+    # the rest of the (nv, Dmax+1) array is padding
+    n_valid = int((topo.depth + 1).sum())
+    b1, by1 = bound_ms(2 * N_ENVS * n_valid * 4, flop1)
+    kernels.append(dict(
+        name="ltdl_factor", route="cuda", source="kinpoly_tpu_torch/csrc/ltdl.cu",
+        replaces="kinpoly_tpu/physics/pallas_ltdl.py:100",
+        launches=None, max_abs_err=err1, ms=k1_ms, plain_ms=k1_plain,
+        bound_ms=b1, bound_by=by1, library_ms=k1_lib))
+    if not err1 < LTDL_ATOL:
+        fail(f"ltdl_factor max abs err {err1:.3g} >= {LTDL_ATOL}")
+
+    # K2: the stable-PD solve (1 column) and the fused [tau - C, J^T] solve
+    # (55 columns). The tolerance gate uses unit-normal right-hand sides, as
+    # the JAX kernel test does; the substep's own right-hand sides reach
+    # |x| ~ 1e3-1e4 (light distal bodies), so on those the error is held
+    # relative to max |x| (float32 rounding over ~60 dependent updates)
+    err2, rel2, k2 = 0.0, 0.0, {}
+    L = torch.linalg.cholesky_ex(dense)[0]
+    gen = torch.Generator(device=device).manual_seed(3)
+    for (args, _) in calls["solve"]:
+        Rf, B = args[1], args[2]
+        nr = B.shape[-1]
+        Bn = torch.randn(B.shape, generator=gen, device=device)
+        err2 = max(err2, float((ltdl_cuda.solve(topo, Rf, Bn)
+                                - ltdl.solve(topo, Rf, Bn)).abs().max()))
+        Xp = ltdl.solve(topo, Rf, B)
+        rel2 = max(rel2, float((ltdl_cuda.solve(topo, Rf, B) - Xp).abs().max()
+                               / Xp.abs().max()))
+        flop2 = N_ENVS * nr * (4 * float(depth.sum()) + nv)
+        b2, by2 = bound_ms((N_ENVS * n_valid + 2 * B.numel()) * 4, flop2)
+        k2[nr] = dict(ms=cuda_ms(lambda: ltdl_cuda.solve(topo, Rf, B), 50),
+                      plain_ms=cuda_ms(lambda: ltdl.solve(topo, Rf, B), 5),
+                      library_ms=cuda_ms(lambda: torch.cholesky_solve(B, L), 20),
+                      bound_ms=b2, bound_by=by2)
+    if sorted(k2) != [1, 55]:
+        fail(f"solve widths {sorted(k2)}, expected [1, 55]")
+    kernels.append(dict(
+        name="ltdl_solve", route="cuda", source="kinpoly_tpu_torch/csrc/ltdl.cu",
+        replaces="kinpoly_tpu/physics/pallas_ltdl.py:118",
+        launches=None, max_abs_err=err2, **k2[55]))
+    if not err2 < LTDL_ATOL:
+        fail(f"ltdl_solve max abs err {err2:.3g} >= {LTDL_ATOL}")
+    if not rel2 < SOLVE_RTOL:
+        fail(f"ltdl_solve on the substep's right-hand sides: relative err "
+             f"{rel2:.3g} >= {SOLVE_RTOL}")
+
+    # K3: PSOR. The tolerance gate runs on seeded SPD systems built as the
+    # JAX kernel test builds them (tests/test_pallas_pgs.py), at the
+    # main-path shapes. On the substep's own contact system (forces up to
+    # ~5e3) float32 rounding alone moves a few small friction forces by
+    # ~1e-3 between any two summation orders, so there the kernel is held
+    # to the float64 solution: no farther from it than twice the float32
+    # plain version is
+    (args, kw), = calls["pgs"]
+    A, rhs, Dinv, Rr, mu, active = args[:6]
+    iters = args[6] if len(args) > 6 else kw["iters"]
+    C, K = rhs.shape[-1], mu.shape[-1]
+    rand = [torch.as_tensor(x, device=device)
+            for x in random_psor_system(N_ENVS, K, seed=4)]
+    f_k = pgs_cuda.pgs_solve(*rand, iters)
+    f_p = ct.psor_plain(*rand, iters)
+    err3 = float((f_k - f_p).abs().max())
+    ok3 = bool(((f_k - f_p).abs() <= PGS_ATOL + PGS_RTOL * f_p.abs()).all())
+    f64 = [x.double() if x.is_floating_point() else x for x in args[:6]]
+    f_d = ct.psor_plain(*f64, iters)
+    ek = float((pgs_cuda.pgs_solve(*args[:6], iters).double() - f_d).abs().max())
+    ep = float((ct.psor_plain(*args[:6], iters).double() - f_d).abs().max())
+    n_active = float(active.float().sum())
+    flop3 = N_ENVS * iters * K * (3 * C * 2 + 9 * 2 + 12)
+    b3, by3 = bound_ms(4 * (A.numel() + 3 * rhs.numel() + Dinv.numel()
+                            + mu.numel())
+                       + active.numel() * active.element_size(), flop3)
+    kernels.append(dict(
+        name="pgs_solve", route="cuda", source="kinpoly_tpu_torch/csrc/pgs.cu",
+        replaces="kinpoly_tpu/physics/pallas_pgs.py:115",
+        launches=None, max_abs_err=err3,
+        ms=cuda_ms(lambda: pgs_cuda.pgs_solve(*args[:6], iters), 50),
+        plain_ms=cuda_ms(lambda: ct.psor_plain(*args[:6], iters), 2),
+        bound_ms=b3, bound_by=by3, library_ms=None))
+    if not ok3:
+        fail(f"pgs_solve outside rtol {PGS_RTOL} atol {PGS_ATOL} "
+             f"(max abs err {err3:.3g})")
+    if not ek <= 2 * ep + PGS_ATOL:
+        fail(f"pgs_solve on the substep's system: {ek:.3g} from float64, the "
+             f"float32 plain version {ep:.3g}")
+    say("kernels", f"N={N_ENVS}: factor err {err1:.3g} {k1_ms:.4f} ms | "
+        f"solve err {err2:.3g} (substep rhs rel {rel2:.3g}) R=1 {k2[1]['ms']:.4f} ms R=55 "
+        f"{k2[55]['ms']:.4f} ms | pgs err {err3:.3g} (substep system: kernel "
+        f"{ek:.3g}, plain {ep:.3g} from float64, max |f| "
+        f"{float(f_d.abs().max()):.3g}) {kernels[2]['ms']:.4f} ms "
+        f"({n_active:.0f} active blocks of {N_ENVS * K}); "
+        f"solve R=1 numbers: {json.dumps(k2[1])}", tp)
+
+    # 4. the slice: UHC evaluation through the kernels --------------------
+    tp = time.perf_counter()
+    agent = build_agent(13000, n_clips=SLICE_CLIPS, n_frames=SLICE_FRAMES,
+                        seed=0, device=device,
+                        out_root=os.path.join(here, "results"))
+    torch.cuda.synchronize()
+    steps = SLICE_STEPS
+    native.LAUNCHES.clear()
+    t_run = time.perf_counter()
+    cov, info = agent.eval_coverage(max_steps=steps)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    launches = dict(native.LAUNCHES)
+    expect = {"ltdl_factor": 30 * steps, "ltdl_solve": 30 * steps,
+              "pgs_solve": 15 * steps}
+    st = info["state"].sim
+    finite = bool(torch.isfinite(st.qpos).all() and torch.isfinite(st.qvel).all())
+    say("slice", f"{SLICE_CLIPS} clips x {steps} control steps: coverage {cov:.4f}, mean "
+        f"tracked {float(np.mean(info['percent'])):.1%}, "
+        f"{run_s / steps * 1e3:.1f} ms per control step, launches {launches} "
+        f"(expected {expect}), finite {finite}", tp)
+    if launches != expect:
+        fail(f"kernel launches {launches} != {expect}")
+    if not finite or tuple(st.qpos.shape) != (SLICE_CLIPS, 76):
+        fail("non-finite or misshapen state after the evaluation")
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+
+    # 5. parity: card (f32, kernels) against the CPU plain path (f64) -----
+    tp = time.perf_counter()
+    cpu_model = eng.build_model(spec, uhc_control_params(spec), device="cpu",
+                                dtype=torch.float64)
+    rng = np.random.RandomState(7)
+    q0 = agent.env.bank.qpos[:4, 0].double().cpu().numpy()
+    qpos = q0.copy()
+    qpos[:, 7:] += rng.uniform(-0.05, 0.05, (4, 69))
+    qvel = rng.normal(0, 0.3, (4, 75))
+    action = rng.normal(0, 0.2, (4, 75))
+    base_rot = np.asarray([0.7071, 0.7071, 0.0, 0.0], np.float32)
+    outs = []
+    for m in (model, cpu_model):
+        t = lambda x: torch.as_tensor(x, dtype=m.dtype, device=m.device)
+        s = eng.control_step(m, eng.SimState(t(qpos), t(qvel)), t(action),
+                             t(q0[:, 7:]), t(base_rot))
+        outs.append([x.double().cpu() for x in s])
+    perr = max(float((a - b).abs().max()) for a, b in zip(*outs))
+    say("parity", f"one control step, 4 envs, card f32 vs CPU f64: max abs "
+        f"err {perr:.3g} (tol {PARITY_ATOL})", tp)
+    if not perr < PARITY_ATOL:
+        fail(f"card vs CPU parity error {perr:.3g}")
+
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi_line, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
+        flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,133 @@
+"""UHC configuration: the values of ``kinpoly_tpu/config/yaml/uhc.yml`` as a
+dataclass, and the per-joint stable-PD table (port of
+``kinpoly_tpu/config/defaults.py``).
+
+The defaults below are copied from the YAML (the port reads no YAML); a test
+holds them against the YAML as the JAX package parses it.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from kinpoly_tpu_torch.physics.engine import ControlParams
+
+# (k_p, k_d, torque limit) per 3-hinge body, identical for its z/y/x hinges
+_BODY_PD = {
+    "L_Hip": (500.0, 50.0, 200.0),
+    "L_Knee": (500.0, 50.0, 150.0),
+    "L_Ankle": (400.0, 40.0, 100.0),
+    "L_Toe": (200.0, 20.0, 100.0),
+    "R_Hip": (500.0, 50.0, 200.0),
+    "R_Knee": (500.0, 50.0, 150.0),
+    "R_Ankle": (400.0, 40.0, 100.0),
+    "R_Toe": (200.0, 20.0, 100.0),
+    "Torso": (1000.0, 100.0, 200.0),
+    "Spine": (1000.0, 100.0, 200.0),
+    "Chest": (1000.0, 100.0, 200.0),
+    "Neck": (100.0, 10.0, 50.0),
+    "Head": (100.0, 10.0, 50.0),
+    "L_Thorax": (400.0, 40.0, 100.0),
+    "L_Shoulder": (400.0, 40.0, 100.0),
+    "L_Elbow": (300.0, 30.0, 60.0),
+    "L_Wrist": (100.0, 10.0, 50.0),
+    "L_Hand": (100.0, 10.0, 50.0),
+    "R_Thorax": (400.0, 40.0, 100.0),
+    "R_Shoulder": (400.0, 40.0, 100.0),
+    "R_Elbow": (300.0, 30.0, 60.0),
+    "R_Wrist": (100.0, 10.0, 50.0),
+    "R_Hand": (100.0, 10.0, 50.0),
+}
+
+# per-body weights of the imitation body-difference distance
+BODY_DIFF_WEIGHTS = {"L_Toe": 0.0, "R_Toe": 0.0, "L_Hand": 0.0, "R_Hand": 0.0}
+
+
+def uhc_control_params(spec, rfc_scale: float = 100.0,
+                       rfc_lim: float = float("inf")) -> ControlParams:
+    """ControlParams from the PD table (implicit RFC, action_v 1)."""
+    jkp, jkd, tl = [], [], []
+    for name in spec.body_names[1:]:
+        kp, kd, lim = _BODY_PD[name]
+        jkp += [kp] * 3
+        jkd += [kd] * 3
+        tl += [lim] * 3
+    n = len(jkp)
+    return ControlParams(jkp=np.asarray(jkp), jkd=np.asarray(jkd),
+                         a_ref=np.zeros(n), a_scale=np.ones(n),
+                         torque_lim=np.asarray(tl), rfc_scale=rfc_scale,
+                         rfc_lim=rfc_lim, action_v=1)
+
+
+def body_diff_weights(spec) -> np.ndarray:
+    """(24,) per-body weight of the termination distance (Pelvis 1)."""
+    w = np.asarray([BODY_DIFF_WEIGHTS.get(n, 1.0) for n in spec.body_names])
+    w[0] = 1.0
+    return w
+
+
+def b_diff_weights_pose(spec) -> np.ndarray:
+    """(23,) non-root body weights of the reward's pose term."""
+    return body_diff_weights(spec)[1:]
+
+
+_REWARD_WEIGHTS = dict(w_p=0.3, w_v=0.1, w_e=0.45, w_c=0.1, w_vf=0.05,
+                       k_p=2.0, k_v=0.005, k_e=5.0, k_c=100.0, k_vf=1.0)
+
+
+@dataclass(frozen=True)
+class UHCConfig:
+    """The UHC training configuration (uhc.yml), field for field."""
+    gamma: float = 0.95
+    tau: float = 0.95
+    policy_htype: str = "relu"
+    policy_hsize: tuple = (512, 256)
+    policy_lr: float = 5.0e-5
+    value_htype: str = "relu"
+    value_hsize: tuple = (512, 256)
+    value_lr: float = 3.0e-4
+    clip_epsilon: float = 0.2
+    min_batch_size: int = 50000
+    mini_batch_size: int = 32768
+    num_optim_epoch: int = 10
+    log_std: float = -2.3
+    fix_std: bool = True
+    max_iter_num: int = 30000
+    seed: int = 1
+    save_model_interval: int = 100
+    reward_id: str = "world_rfc_implicit"
+    actor_type: str = "mcp"
+    num_primitive: int = 8
+    action_v: int = 1
+    obs_v: int = 1
+    reactive_v: int = 1
+    reactive_rate: float = 0.3
+    sampling_temp: float = 2
+    env_term_body: str = "body"
+    env_episode_len: int = 100000
+    obs_coord: str = "root"
+    obs_vel: str = "full"
+    residual_force: bool = True
+    residual_force_scale: float = 100.0
+    residual_force_lim: float = 100.0
+    residual_force_mode: str = "implicit"
+    base_rot: tuple = (0.7071, 0.7071, 0.0, 0.0)
+    reward_weights: dict = field(default_factory=lambda: dict(_REWARD_WEIGHTS))
+    n_envs: int = 1024
+    rollout_steps: int = 48
+
+    def model_dir(self, out_root: str = "results", cfg_id: str = "uhc") -> str:
+        """Where the trainer writes ``iter_*.p`` checkpoints."""
+        return os.path.join(out_root, "motion_im", cfg_id, "models")
+
+    def env_config(self):
+        from kinpoly_tpu_torch.envs.humanoid_im import EnvConfig
+
+        return EnvConfig(
+            obs_v=self.obs_v, obs_coord=self.obs_coord, obs_vel=self.obs_vel,
+            env_term_body=self.env_term_body,
+            env_episode_len=self.env_episode_len, base_rot=self.base_rot,
+            reward_id=self.reward_id, **self.reward_weights)

@@ -1,0 +1,215 @@
+"""Quaternion / rotation / heading math (port of ``kinpoly_tpu/core/tmath.py``,
+the functions the UHC evaluation path calls).
+
+Batched over arbitrary leading dims and dtype-preserving. Conventions as in
+the JAX package: quaternions are (w, x, y, z), ``quat_mul(a, b)`` applies b
+first, the heading of a root quaternion zeroes its x/y parts, Euler
+sequences follow the transformations.py encoding.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def safe_norm(x: torch.Tensor, dim: int = -1, keepdim: bool = True,
+              eps: float = 1e-12) -> torch.Tensor:
+    """L2 norm floored at eps (before the sqrt, as the JAX package does)."""
+    n2 = torch.sum(x * x, dim=dim, keepdim=keepdim)
+    return torch.sqrt(torch.clamp(n2, min=eps * eps))
+
+
+def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    aw, ax, ay, az = a.unbind(-1)
+    bw, bx, by, bz = b.unbind(-1)
+    return torch.stack([
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+    ], dim=-1)
+
+
+def quat_conj(q: torch.Tensor) -> torch.Tensor:
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
+
+
+def quat_inv(q: torch.Tensor) -> torch.Tensor:
+    """Conjugate over squared norm (no unit assumption)."""
+    return quat_conj(q) / torch.sum(q * q, dim=-1, keepdim=True)
+
+
+def quat_norm(q: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    return q / safe_norm(q, eps=eps)
+
+
+def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion -> (..., 3, 3) rotation matrix."""
+    w, x, y, z = q.unbind(-1)
+    n = torch.sum(q * q, dim=-1)
+    s = torch.where(n > 1e-12, 2.0 / torch.clamp(n, min=1e-12),
+                    torch.zeros_like(n))
+    wx, wy, wz = s * w * x, s * w * y, s * w * z
+    xx, xy, xz = s * x * x, s * x * y, s * x * z
+    yy, yz, zz = s * y * y, s * y * z, s * z * z
+    one = torch.ones_like(xx)
+    m = torch.stack([
+        one - (yy + zz), xy - wz, xz + wy,
+        xy + wz, one - (xx + zz), yz - wx,
+        xz - wy, yz + wx, one - (xx + yy),
+    ], dim=-1)
+    return m.reshape(m.shape[:-1] + (3, 3))
+
+
+def quat_rot_vec(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """R(q) v for (..., 4) q and (..., 3) v (broadcasting)."""
+    qv = q[..., 1:]
+    qv, v = torch.broadcast_tensors(qv, v)
+    uv = torch.linalg.cross(qv, v)
+    uuv = torch.linalg.cross(qv, uv)
+    return v + 2.0 * (q[..., :1] * uv + uuv)
+
+
+def quat_rot_vec_inv(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return quat_rot_vec(quat_conj(q), v)
+
+
+def quat_from_expmap(e: torch.Tensor) -> torch.Tensor:
+    """Axis*angle 3-vector -> quaternion, finite at 0."""
+    angle = safe_norm(e)
+    half = 0.5 * angle
+    k = torch.where(angle < 1e-9, 0.5 * torch.ones_like(angle),
+                    torch.sin(half) / torch.clamp(angle, min=1e-9))
+    return torch.cat([torch.cos(half), e * k], dim=-1)
+
+
+def rotation_from_quat(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion -> axis*angle, angle = 2*atan2(|xyz|, w) in [0, 2pi);
+    near-identity quaternions give the zero vector."""
+    w = torch.clamp(q[..., :1], -1.0, 1.0)
+    s = safe_norm(q[..., 1:], eps=1e-9)
+    angle = 2.0 * torch.atan2(s, w)
+    small = (1.0 - torch.abs(w)) < 1e-8
+    unit_x = torch.zeros_like(q[..., 1:])
+    unit_x[..., 0] = 1.0
+    axis = torch.where(small, unit_x, q[..., 1:] / s)
+    return torch.where(small, torch.zeros_like(axis), axis * angle)
+
+
+def heading_q(q: torch.Tensor) -> torch.Tensor:
+    """Zero the x/y parts and renormalise; identity where undefined."""
+    zero = torch.zeros_like(q[..., 0])
+    hq = torch.stack([q[..., 0], zero, zero, q[..., 3]], dim=-1)
+    n2 = torch.sum(hq * hq, dim=-1, keepdim=True)
+    iden = torch.zeros_like(hq)
+    iden[..., 0] = 1.0
+    hq = torch.where(n2 > 1e-12, hq, iden)
+    return hq / safe_norm(hq, eps=1e-6)
+
+
+def heading(q: torch.Tensor) -> torch.Tensor:
+    """Yaw of the sign-canonicalised heading quaternion, 2*atan2(z, w)."""
+    w, z = q[..., 0], q[..., 3]
+    sgn = torch.where(z < 0, -1.0, 1.0).to(q.dtype)
+    w, z = sgn * w, sgn * z
+    deg = (w * w + z * z) <= 1e-12
+    w = torch.where(deg, torch.ones_like(w), w)
+    z = torch.where(deg, torch.zeros_like(z), z)
+    return 2.0 * torch.atan2(z, w)
+
+
+def de_heading(q: torch.Tensor) -> torch.Tensor:
+    return quat_mul(quat_conj(heading_q(q)), q)
+
+
+def transform_vec(v: torch.Tensor, q: torch.Tensor,
+                  trans: str = "root") -> torch.Tensor:
+    """World vector v in the root ('root') or heading ('heading') frame."""
+    if trans == "root":
+        return quat_rot_vec_inv(quat_norm(q), v)
+    if trans == "heading":
+        return quat_rot_vec_inv(heading_q(q), v)
+    raise ValueError(f"unknown transform {trans!r}")
+
+
+def wrap_to_pi(x: torch.Tensor) -> torch.Tensor:
+    return x - 2.0 * math.pi * torch.floor((x + math.pi) / (2.0 * math.pi))
+
+
+_AXES2TUPLE = {
+    "sxyz": (0, 0, 0, 0), "rzyx": (0, 0, 0, 1),
+}
+_NEXT_AXIS = [1, 2, 0, 1]
+
+
+def quat_from_euler(ai: torch.Tensor, aj: torch.Tensor, ak: torch.Tensor,
+                    axes: str = "sxyz") -> torch.Tensor:
+    """Euler angles -> quaternion (the transformations.py algorithm) for
+    the two sequences the humanoid uses: 'sxyz' and 'rzyx'."""
+    firstaxis, parity, repetition, frame = _AXES2TUPLE[axes.lower()]
+    i = firstaxis + 1
+    j = _NEXT_AXIS[i + parity - 1] + 1
+    k = _NEXT_AXIS[i - parity] + 1
+    if frame:
+        ai, ak = ak, ai
+    ai, aj, ak = ai * 0.5, aj * 0.5, ak * 0.5
+    ci, si = torch.cos(ai), torch.sin(ai)
+    cj, sj = torch.cos(aj), torch.sin(aj)
+    ck, sk = torch.cos(ak), torch.sin(ak)
+    cc, cs = ci * ck, ci * sk
+    sc, ss = si * ck, si * sk
+    out = [None] * 4
+    out[0] = cj * cc + sj * ss
+    out[i] = cj * sc - sj * cs
+    out[j] = cj * ss + sj * cc
+    out[k] = cj * cs - sj * sc
+    return torch.stack(out, dim=-1)
+
+
+def multi_quat_diff(nq1: torch.Tensor, nq0: torch.Tensor) -> torch.Tensor:
+    """q1 * q0^-1 of N stacked joints, flat (..., 4N)."""
+    shape = nq1.shape
+    q1 = nq1.reshape(shape[:-1] + (-1, 4))
+    q0 = nq0.reshape(shape[:-1] + (-1, 4))
+    return quat_mul(q1, quat_inv(q0)).reshape(shape)
+
+
+def multi_quat_norm(nq: torch.Tensor) -> torch.Tensor:
+    """Rotation magnitude atan2(|xyz|, |w|) per joint, (..., 4N) -> (..., N)."""
+    q = nq.reshape(nq.shape[:-1] + (-1, 4))
+    s = safe_norm(q[..., 1:], keepdim=False, eps=1e-12)
+    return torch.atan2(s, torch.abs(q[..., 0]))
+
+
+def qvel_fd(cur_qpos: torch.Tensor, next_qpos: torch.Tensor,
+            dt: float) -> torch.Tensor:
+    """Finite-difference generalized velocity between two qpos frames:
+    world linear velocity, root-frame angular velocity, wrapped hinge
+    rates."""
+    v = (next_qpos[..., :3] - cur_qpos[..., :3]) / dt
+    qrel = quat_mul(next_qpos[..., 3:7], quat_inv(cur_qpos[..., 3:7]))
+    axis_angle = rotation_from_quat(qrel)
+    angle = safe_norm(axis_angle)
+    wrapped = wrap_to_pi(angle)
+    rv = torch.where(angle > 1e-12,
+                     axis_angle * (wrapped / torch.clamp(angle, min=1e-12)),
+                     axis_angle) / dt
+    rv = transform_vec(rv, cur_qpos[..., 3:7], "root")
+    diff = wrap_to_pi(next_qpos[..., 7:] - cur_qpos[..., 7:])
+    return torch.cat([v, rv, diff / dt], dim=-1)
+
+
+def angvel_fd(prev_bquat: torch.Tensor, cur_bquat: torch.Tensor,
+              dt: float) -> torch.Tensor:
+    """Per-joint finite-difference angular velocity, (..., 4N) -> (..., 3N)."""
+    qd = multi_quat_diff(cur_bquat, prev_bquat)
+    q = qd.reshape(qd.shape[:-1] + (-1, 4))
+    aa = rotation_from_quat(q) / dt
+    return aa.reshape(qd.shape[:-1] + (-1,))
+
+
+def normalize_angle_diff(base: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """Shift base by multiples of 2pi so that base - ref is in (-pi, pi]."""
+    return ref + wrap_to_pi(base - ref)

@@ -1,0 +1,274 @@
+"""UHC motion-imitation environment (port of
+``kinpoly_tpu/envs/humanoid_im.py``): observation v1, the
+``world_rfc_implicit`` reward, body-distance termination, the non-finite
+guard, deterministic reset and fail-safe, over a batch of envs.
+
+Every state tensor has a leading env dim N. Reactive reset and the hard
+state bank are training-only and not ported yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, fields
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from kinpoly_tpu_torch.config.defaults import b_diff_weights_pose, body_diff_weights
+from kinpoly_tpu_torch.core import tmath
+from kinpoly_tpu_torch.data import expert as exlib
+from kinpoly_tpu_torch.physics import engine as eng
+from kinpoly_tpu_torch.physics import fk as fklib
+from kinpoly_tpu_torch.rl import rewards as rwlib
+
+
+@dataclass(frozen=True)
+class EnvConfig:
+    obs_v: int = 1
+    obs_coord: str = "root"
+    obs_vel: str = "full"
+    env_term_body: str = "body"
+    body_diff_thresh: float = 0.5
+    env_episode_len: int = 100000
+    env_expert_trail_steps: int = 0
+    base_rot: tuple = (0.7071, 0.7071, 0.0, 0.0)
+    reward_id: str = "world_rfc_implicit"
+    w_p: float = 0.3
+    w_v: float = 0.1
+    w_e: float = 0.45
+    w_c: float = 0.1
+    w_vf: float = 0.05
+    k_p: float = 2.0
+    k_v: float = 0.005
+    k_e: float = 5.0
+    k_c: float = 100.0
+    k_vf: float = 1.0
+    v_ord: int = 2
+
+
+class TargetFrame(NamedTuple):
+    qpos: torch.Tensor      # (..., 76)
+    wbpos: torch.Tensor     # (..., 72)
+    body_com: torch.Tensor  # (..., 72)
+    wbquat: torch.Tensor    # (..., 96)
+
+
+def full_obs(cfg: EnvConfig, base_rot: torch.Tensor, sim: eng.SimState,
+             fk_res: fklib.FKResult, tgt: TargetFrame, include_com: bool):
+    """UHC observation v1 (with the per-body CoM blocks), keeping the
+    reference's quirks the trained policies saw: the linear velocity is
+    turned into the root frame twice, and 'rel_pos' is built from
+    quaternion components."""
+    qpos, qvel = sim.qpos, sim.qvel
+    lead = qpos.shape[:-1]
+
+    def remove_base(q):
+        return tmath.quat_mul(q, tmath.quat_conj(base_rot))
+
+    lin = tmath.transform_vec(qvel[..., :3], qpos[..., 3:7], cfg.obs_coord)
+    curr_root_quat = remove_base(qpos[..., 3:7])
+    hq = tmath.heading_q(curr_root_quat)
+    target_qpos = tgt.qpos
+    target_root_quat = remove_base(target_qpos[..., 3:7])
+
+    qpos_dh = torch.cat([qpos[..., :3], tmath.de_heading(curr_root_quat),
+                         qpos[..., 7:]], dim=-1)
+    diff_rot = tmath.quat_mul(target_root_quat, tmath.quat_inv(curr_root_quat))
+    diff_qpos = torch.cat([target_qpos[..., :2],
+                           target_qpos[..., 2:3] - qpos_dh[..., 2:3],
+                           diff_rot,
+                           target_qpos[..., 7:] - qpos_dh[..., 7:]], dim=-1)
+    obs = [hq, target_qpos[..., 2:], qpos_dh[..., 2:], diff_qpos[..., 2:]]
+
+    lin2 = tmath.transform_vec(lin, curr_root_quat, cfg.obs_coord)
+    vel = torch.cat([lin2, qvel[..., 3:]], dim=-1)
+    obs.append(vel if cfg.obs_vel == "full" else vel[..., :6])
+
+    rel_h = tmath.wrap_to_pi(tmath.heading(target_root_quat)
+                             - tmath.heading(curr_root_quat))
+    obs.append(rel_h[..., None])
+    rel_pos = target_root_quat[..., :3] - qpos[..., :3]
+    rel_pos = tmath.transform_vec(rel_pos, curr_root_quat, cfg.obs_coord)
+    obs.append(rel_pos[..., :2])
+
+    root_q = curr_root_quat[..., None, :]
+    curr_jpos = fk_res.xpos
+    r_jpos = tmath.transform_vec(curr_jpos - qpos[..., None, :3], root_q,
+                                 cfg.obs_coord)
+    obs.append(r_jpos.reshape(lead + (-1,)))
+    diff_jpos = tgt.wbpos.reshape(lead + (24, 3)) - curr_jpos
+    obs.append(tmath.transform_vec(diff_jpos, root_q, cfg.obs_coord)
+               .reshape(lead + (-1,)))
+    if include_com:
+        curr_com = fk_res.xipos
+        r_com = tmath.transform_vec(curr_com - qpos[..., None, :3], root_q,
+                                    cfg.obs_coord)
+        obs.append(r_com.reshape(lead + (-1,)))
+        diff_com = tgt.body_com.reshape(lead + (24, 3)) - curr_com
+        obs.append(tmath.transform_vec(diff_com, root_q, cfg.obs_coord)
+                   .reshape(lead + (-1,)))
+
+    cur_quat = fk_res.xquat
+    r_quat = tmath.quat_mul(tmath.quat_inv(hq)[..., None, :], cur_quat)
+    obs.append(r_quat.reshape(lead + (-1,)))
+    target_quat = tgt.wbquat.reshape(lead + (24, 4))
+    obs.append(tmath.quat_mul(tmath.quat_inv(cur_quat), target_quat)
+               .reshape(lead + (-1,)))
+    return torch.cat(obs, dim=-1)
+
+
+class EnvState(NamedTuple):
+    sim: eng.SimState
+    cur_t: torch.Tensor       # (N,) int64
+    start_ind: torch.Tensor   # (N,) int64
+    prev_bquat: torch.Tensor  # (N, 96)
+    clip_idx: torch.Tensor    # (N,) int64
+    done: torch.Tensor        # (N,) bool
+    fail: torch.Tensor        # (N,) bool
+
+
+class StepInfo(NamedTuple):
+    fail: torch.Tensor
+    end: torch.Tensor
+    percent: torch.Tensor
+    reward_info: torch.Tensor   # (N, 5) reward components
+
+
+def select(mask: torch.Tensor, a: EnvState, b: EnvState) -> EnvState:
+    """Per env: `a` where mask, else `b`."""
+    def pick(x, y):
+        return torch.where(mask.reshape(mask.shape + (1,) * (x.dim() - 1)), x, y)
+    return EnvState(sim=eng.SimState(*(pick(x, y) for x, y in zip(a.sim, b.sim))),
+                    **{f: pick(getattr(a, f), getattr(b, f))
+                       for f in EnvState._fields if f != "sim"})
+
+
+class HumanoidImEnv:
+    """The UHC imitation env bound to a physics model, a config and an
+    expert bank; all methods act on a batch of envs."""
+
+    def __init__(self, model: eng.PhysicsModel, cfg: EnvConfig,
+                 bank: exlib.ExpertClip):
+        if cfg.obs_v != 1 or cfg.env_term_body != "body":
+            raise ValueError("the port has observation v1 and body-distance "
+                             "termination only")
+        self.model = model
+        self.cfg = cfg
+        self.bank = bank
+        dtype, device = model.dtype, model.device
+        # the JAX env keeps base_rot in float32 whatever the physics dtype
+        self.base_rot = torch.tensor(cfg.base_rot, dtype=torch.float32).to(
+            dtype=dtype, device=device)
+        spec = model.spec
+        self.ee_idx = torch.as_tensor(
+            fklib.make_body_index(spec, exlib.EE_NAMES), device=device)
+        self.jpos_diffw = torch.as_tensor(body_diff_weights(spec), dtype=dtype,
+                                          device=device)
+        self.b_diffw = torch.as_tensor(b_diff_weights_pose(spec), dtype=dtype,
+                                       device=device)
+        self.vf_dim = model.ctrl.vf_dim
+        self.action_dim = 69 + self.vf_dim
+        self.reward_fn = rwlib.get_uhc_reward(cfg.reward_id)
+        self.reward_weights = {f.name: getattr(cfg, f.name) for f in fields(cfg)}
+
+    @property
+    def n_clips(self) -> int:
+        return int(self.bank.length.shape[0])
+
+    def expert_frame(self, state: EnvState, delta_t: int = 0) -> exlib.ExpertClip:
+        return exlib.bank_frame(self.bank, state.clip_idx,
+                                state.start_ind + state.cur_t + delta_t)
+
+    def get_obs(self, state: EnvState, fk_res: fklib.FKResult | None = None):
+        if fk_res is None:
+            fk_res = fklib.fk(self.model.st, state.sim.qpos)
+        t = self.expert_frame(state, delta_t=1)
+        return full_obs(self.cfg, self.base_rot, state.sim, fk_res,
+                        TargetFrame(t.qpos, t.wbpos, t.body_com, t.wbquat),
+                        include_com=True)
+
+    def reward(self, state: EnvState, next_sim: eng.SimState, action,
+               fk_res: fklib.FKResult):
+        """`state` carries the post-increment time, so the expert frame is
+        the one the step moved to."""
+        e = self.expert_frame(state)
+        cur_bquat = fklib.body_quat_sim(next_sim.qpos)
+        inp = rwlib.RewardInputs(
+            bquat=cur_bquat,
+            bangvel=tmath.angvel_fd(state.prev_bquat, cur_bquat,
+                                    self.model.control_dt),
+            ee_wpos=exlib.ee_world(fk_res, self.ee_idx),
+            com=fklib.com(self.model.st, fk_res),
+            e_bquat=e.bquat, e_bangvel=e.bangvel, e_ee_wpos=e.ee_wpos,
+            e_com=e.com, vf=action[..., 69:69 + self.vf_dim],
+            b_diffw=self.b_diffw)
+        return self.reward_fn(inp, self.reward_weights)
+
+    def calc_body_diff(self, state: EnvState, fk_res: fklib.FKResult):
+        e = self.expert_frame(state)
+        cur = fk_res.xpos
+        ref = e.wbpos.reshape(cur.shape[:-2] + (24, 3))
+        diff = (cur - ref) * self.jpos_diffw[:, None]
+        return torch.linalg.norm(diff, dim=-1).mean(dim=-1)
+
+    def step(self, state: EnvState, action: torch.Tensor):
+        """One control step of every env: (state, obs, reward, done, info)."""
+        cfg = self.cfg
+        tgt = self.expert_frame(state, delta_t=1)
+        next_sim = eng.control_step(self.model, state.sim, action,
+                                    tgt.qpos[..., 7:], self.base_rot)
+        # a blown-up env is snapped back to the expert frame and terminated
+        bad = ~(torch.isfinite(next_sim.qpos).all(dim=-1)
+                & torch.isfinite(next_sim.qvel).all(dim=-1))
+        safe = self.expert_frame(state, delta_t=0)
+        next_sim = eng.SimState(
+            qpos=torch.where(bad[..., None], safe.qpos, next_sim.qpos),
+            qvel=torch.where(bad[..., None], safe.qvel, next_sim.qvel))
+        fk_res = fklib.fk(self.model.st, next_sim.qpos)
+
+        new_t = state.cur_t + 1
+        mid = state._replace(sim=next_sim, cur_t=new_t)
+        reward, rinfo = self.reward(mid, next_sim, action, fk_res)
+
+        length = self.bank.length[state.clip_idx]
+        fail = (self.calc_body_diff(mid, fk_res) > cfg.body_diff_thresh) | bad
+        end = (new_t >= cfg.env_episode_len) | (
+            new_t + state.start_ind >= length + cfg.env_expert_trail_steps)
+        done = fail | end
+        percent = new_t.to(next_sim.qpos.dtype) / length.to(next_sim.qpos.dtype)
+
+        new_state = mid._replace(prev_bquat=fklib.body_quat_sim(next_sim.qpos),
+                                 done=done, fail=fail)
+        obs = self.get_obs(new_state, fk_res)
+        return new_state, obs, reward, done, StepInfo(fail, end, percent, rinfo)
+
+    def reset(self, clip_idx: torch.Tensor, start_ind: int = 0):
+        """Deterministic reset: each env starts exactly on its clip's frame
+        `start_ind` (the evaluation semantics)."""
+        clip_idx = torch.as_tensor(clip_idx, device=self.model.device)
+        start = torch.full_like(clip_idx, start_ind)
+        f0 = exlib.bank_frame(self.bank, clip_idx, start)
+        zero = torch.zeros_like(clip_idx, dtype=torch.bool)
+        state = EnvState(
+            sim=eng.SimState(qpos=f0.qpos, qvel=f0.qvel),
+            cur_t=torch.zeros_like(clip_idx), start_ind=start,
+            prev_bquat=fklib.body_quat_sim(f0.qpos), clip_idx=clip_idx,
+            done=zero, fail=zero)
+        return state, self.get_obs(state)
+
+    def fail_safe(self, state: EnvState) -> EnvState:
+        """Teleport the sim to the expert pose."""
+        f = self.expert_frame(state)
+        return state._replace(sim=eng.SimState(qpos=f.qpos, qvel=f.qvel))
+
+
+def make_bank(spec, model: eng.PhysicsModel, takes: list[np.ndarray]) -> exlib.ExpertClip:
+    """Expert bank of qpos sequences (each (T_i, 76)), padded to the
+    longest, in the model's dtype on its device."""
+    t_max = max(t.shape[0] for t in takes)
+    return exlib.stack_bank([
+        exlib.from_qpos(spec, model.st, torch.as_tensor(
+            np.asarray(t), dtype=model.dtype, device=model.device),
+            dt=model.control_dt, pad_to=t_max)
+        for t in takes])

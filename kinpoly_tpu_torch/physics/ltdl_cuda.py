@@ -1,0 +1,85 @@
+"""Wrappers of the LTDL kernels K1 (factor) and K2 (solve) in
+``csrc/ltdl.cu``.
+
+Both take the engine's batch-leading layout directly: packed rows
+(..., nv, Dmax+1) and right-hand sides (..., nv, R), float32, contiguous,
+on a CUDA device. A CPU tensor goes to the plain version in ``ltdl``; a CUDA
+tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from kinpoly_tpu_torch import native
+from kinpoly_tpu_torch.physics import ltdl
+
+_SMEM_LIMIT = 48 * 1024
+
+
+def _check(name: str, x: torch.Tensor, shape_tail: tuple) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {x.device}")
+    if x.dtype != torch.float32:
+        raise ValueError(f"{name}: expected float32, got {x.dtype}")
+    if tuple(x.shape[-len(shape_tail):]) != shape_tail:
+        raise ValueError(f"{name}: expected (..., {shape_tail}), got "
+                         f"{tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _tables(topo: ltdl.LTDLTopo, device: torch.device):
+    tabs = topo.kernel_tables
+    if tabs[0].device != device:
+        raise ValueError(f"topology tables live on {tabs[0].device}, "
+                         f"the input on {device}")
+    return tabs
+
+
+def factor(topo: ltdl.LTDLTopo, R: torch.Tensor) -> torch.Tensor:
+    """Packed M = L^T D L (kernel K1)."""
+    if R.device.type == "cpu":
+        return ltdl.factor(topo, R)
+    nv, dp1 = topo.nv, topo.dmax + 1
+    _check("ltdl_factor", R, (nv, dp1))
+    if dp1 > 32:
+        raise ValueError(f"ltdl_factor: tree depth {dp1 - 1} exceeds a warp")
+    anc, depth, order = _tables(topo, R.device)
+    n = R.numel() // (nv * dp1)
+    out = torch.empty_like(R)
+    if n == 0:
+        return out
+    rc = native.library().ltdl_factor(
+        R.data_ptr(), out.data_ptr(), anc.data_ptr(), depth.data_ptr(),
+        order.data_ptr(), n, nv, dp1, ltdl.DIAG_REG,
+        torch.cuda.current_stream(R.device).cuda_stream)
+    native.check_launch("ltdl_factor", rc)
+    return out
+
+
+def solve(topo: ltdl.LTDLTopo, Rf: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """X = M^-1 B from the packed factor (kernel K2); B (..., nv, R)."""
+    if Rf.device.type == "cpu" and B.device.type == "cpu":
+        return ltdl.solve(topo, Rf, B)
+    nv, dp1 = topo.nv, topo.dmax + 1
+    _check("ltdl_solve", Rf, (nv, dp1))
+    nr = B.shape[-1]
+    _check("ltdl_solve", B, (nv, nr))
+    if B.shape[:-2] != Rf.shape[:-2] or B.device != Rf.device:
+        raise ValueError(f"ltdl_solve: factor {tuple(Rf.shape)} on "
+                         f"{Rf.device} vs rhs {tuple(B.shape)} on {B.device}")
+    if 4 * nv * (dp1 + nr) > _SMEM_LIMIT:
+        raise ValueError(f"ltdl_solve: {nr} right-hand sides exceed the "
+                         f"kernel's shared memory")
+    anc, depth, order = _tables(topo, B.device)
+    n = B.numel() // (nv * nr)
+    X = torch.empty_like(B)
+    if n == 0:
+        return X
+    rc = native.library().ltdl_solve(
+        Rf.data_ptr(), B.data_ptr(), X.data_ptr(), anc.data_ptr(),
+        depth.data_ptr(), order.data_ptr(), n, nv, dp1, nr,
+        torch.cuda.current_stream(B.device).cuda_stream)
+    native.check_launch("ltdl_solve", rc)
+    return X
