@@ -7,10 +7,11 @@ Phases, one line each with its seconds:
   1. device   needs a CUDA device; prints the card's name and power limit
   2. build    compiles the CUDA kernels (one nvcc call, sm_90a)
   3. kernels  builds the inputs of every kernel from one real substep of
-              2048 envs, runs each kernel's wrapper and its plain PyTorch
-              version on them, checks the error against the JAX tests'
-              tolerances, and times kernel, plain version, bound and the
-              nearest single PyTorch call
+              2048 envs in each solver configuration (LTDL, dense), runs
+              each kernel's wrapper and its plain PyTorch version on them
+              and on the JAX kernel tests' kind of input, checks the error
+              against the JAX tests' tolerances, and times kernel, plain
+              version, bound and the nearest PyTorch call
   4. slice    loads the trained UHC checkpoint iter_13000.p and evaluates
               it for 60 control steps on 24 seeded clips of 120 frames (one
               env per clip) through the kernels, with the launch counters
@@ -18,6 +19,15 @@ Phases, one line each with its seconds:
               be finite
   5. parity   one control step of 4 envs on the card (float32, kernels)
               against the plain path on the CPU (float64)
+  6. train    UHC training at uhc.yml's widths and 1024 envs, depth cut to
+              8 control steps: 2 iterations of train_epoch (rollout, norm,
+              GAE, PPO) through the LTDL kernels, launches counted as in 4;
+              losses, rewards and states finite, the policy moved, and a
+              saved checkpoint reloads to bit-identical outputs
+  7. dense    one iteration of the same training with the dense Cholesky
+              configuration (kernel K4a), launches counted; then one
+              control step of 4 envs on the card against the CPU float64
+              plain dense path
 Then a JSON line with every kernel's numbers, the card's nvidia-smi line,
 and as the last line {"ok": true, "device": {...}}. Any failure exits
 non-zero before that line; a watchdog ends the run past 10 minutes.
@@ -29,6 +39,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -37,12 +48,15 @@ import numpy as np
 WATCHDOG_S = 600
 N_ENVS = 2048                 # kernel checks: envs of the captured substep
 SLICE_CLIPS, SLICE_FRAMES, SLICE_STEPS = 24, 120, 60
+# training: uhc.yml's n_envs; rollout depth cut from 48 to 8 control steps
+TRAIN_ENVS, TRAIN_STEPS, TRAIN_ITERS = 1024, 8, 2
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 # tolerances of the JAX package's own kernel tests
 LTDL_ATOL = 1e-3              # tests/test_pallas_ltdl.py:48,60
 PGS_RTOL, PGS_ATOL = 2e-4, 2e-5   # tests/test_pallas_pgs.py:69
-SOLVE_RTOL = 1e-4             # K2 on the substep's own right-hand sides, / max |x|
+CHOL_TOL = 5e-3               # tests/test_pallas_chol.py:22-47 (rtol = atol)
+SOLVE_RTOL = 1e-4             # K2, K4a on the substep's own systems, / max |x|
 PARITY_ATOL = 1e-3            # qpos/qvel after one control step, f32 vs f64
 T0 = time.perf_counter()
 
@@ -114,10 +128,12 @@ def capture_substep(model, n: int, seed: int):
     import torch
     from kinpoly_tpu_torch.anim.spec import standing_pose
     from kinpoly_tpu_torch.physics import engine as eng
-    from kinpoly_tpu_torch.physics import ltdl_cuda, pgs_cuda
+    from kinpoly_tpu_torch.physics import chol_cuda, ltdl_cuda, pgs_cuda
 
-    calls = {"factor": [], "solve": [], "pgs": []}
-    orig = (ltdl_cuda.factor, ltdl_cuda.solve, pgs_cuda.pgs_solve)
+    wrappers = {"factor": (ltdl_cuda, "factor"), "solve": (ltdl_cuda, "solve"),
+                "pgs": (pgs_cuda, "pgs_solve"), "chol": (chol_cuda, "solve_only")}
+    calls = {k: [] for k in wrappers}
+    orig = {k: getattr(mod, name) for k, (mod, name) in wrappers.items()}
 
     def rec(key, fn):
         def wrapped(*args, **kw):
@@ -136,18 +152,240 @@ def capture_substep(model, n: int, seed: int):
     action = t(rng.normal(0, 0.3, (n, 75)))
     base_rot = t(np.asarray([0.7071, 0.7071, 0.0, 0.0], np.float32))
     plan = eng.build_contact_plan(model, state.qpos)
-    ltdl_cuda.factor = rec("factor", orig[0])
-    ltdl_cuda.solve = rec("solve", orig[1])
-    pgs_cuda.pgs_solve = rec("pgs", orig[2])
+    for k, (mod, name) in wrappers.items():
+        setattr(mod, name, rec(k, orig[k]))
     try:
         out = eng.substep(model, state, action[:, :69], action[:, 69:],
                           t(qpos[:, 7:]), base_rot, plan)
     finally:
-        ltdl_cuda.factor, ltdl_cuda.solve, pgs_cuda.pgs_solve = orig
+        for k, (mod, name) in wrappers.items():
+            setattr(mod, name, orig[k])
     torch.cuda.synchronize()
     if not (torch.isfinite(out.qpos).all() and torch.isfinite(out.qvel).all()):
         fail("capture substep produced non-finite state")
-    return calls
+    return {k: v for k, v in calls.items() if v}
+
+
+def spd_systems(n: int, dim: int, seed: int) -> np.ndarray:
+    """SPD systems as tests/test_pallas_chol.py builds them (float32)."""
+    rng = np.random.RandomState(seed)
+    J = rng.randn(n, dim, dim + 8).astype(np.float32)
+    return (J @ np.swapaxes(J, -1, -2) + np.eye(dim, dtype=np.float32) * (dim * 0.1))
+
+
+def chol_bound(n_env: int, n: int, nr: int, factor: bool, l_out: bool):
+    """Bytes and flops the dense kernels need: the lower triangle of A (or
+    L) read, B read, X (and L, n x n) written; the factor's n^3 / 3 flops
+    and the two solves' 2 n^2 R."""
+    tri = n * (n + 1) // 2
+    n_bytes = 4 * n_env * (tri + 2 * n * nr + (n * n if l_out else 0))
+    n_flop = n_env * ((n ** 3 / 3 if factor else 0) + 2 * n * n * nr)
+    return bound_ms(n_bytes, n_flop)
+
+
+def check_chol_kernels(dense_model, device) -> tuple[list[dict], list[str]]:
+    """K4a (R = 1 and 55), K4b and K4c against their plain versions and
+    float64, on the JAX test's SPD systems and on one dense substep's own
+    systems (A = M + Kd dt with the stable-PD right-hand side; M with
+    [tau - C, J^T])."""
+    import torch
+    from kinpoly_tpu_torch.physics import chol, chol_cuda
+
+    calls = capture_substep(dense_model, N_ENVS, 0)
+    if sorted((k, len(v)) for k, v in calls.items()) != [("chol", 2), ("pgs", 1)]:
+        fail(f"a dense substep made {[(k, len(v)) for k, v in calls.items()]} "
+             f"kernel calls")
+    sub = {args[1].shape[-1]: args for args, _ in calls["chol"]}
+    if sorted(sub) != [1, 55]:
+        fail(f"dense solve widths {sorted(sub)}, expected [1, 55]")
+    n = sub[1][0].shape[-1]
+    A = torch.as_tensor(spd_systems(N_ENVS, n, 11), device=device)
+    gen = torch.Generator(device=device).manual_seed(12)
+    out, msgs = [], []
+
+    def gate(name, got, plain, ref):
+        """max |kernel - plain| within CHOL_TOL, and both within the JAX
+        test's allclose(rtol = atol = CHOL_TOL) of float64."""
+        err = float((got - plain).abs().max())
+        for x in (got, plain):
+            if not bool(((x.double() - ref).abs()
+                         <= CHOL_TOL + CHOL_TOL * ref.abs()).all()):
+                fail(f"{name}: outside rtol = atol = {CHOL_TOL} of float64")
+        if not err < CHOL_TOL:
+            fail(f"{name}: max abs err against the plain version {err:.3g}")
+        return err
+
+    for nr in (1, 55):
+        name = f"chol_solve_only[R={nr}]"
+        B = torch.randn(N_ENVS, n, nr, generator=gen, device=device)
+        ref = torch.linalg.solve(A.double(), B.double())
+        err = gate(name, chol_cuda.solve_only(A, B), chol.solve_only(A, B), ref)
+        As, Bs = sub[nr]
+        Xp = chol.solve_only(As, Bs)
+        rel = float((chol_cuda.solve_only(As, Bs) - Xp).abs().max()
+                    / Xp.abs().max())
+        if not rel < SOLVE_RTOL:
+            fail(f"{name} on the substep's systems: relative err {rel:.3g} "
+                 f">= {SOLVE_RTOL}")
+        b, by = chol_bound(N_ENVS, n, nr, factor=True, l_out=False)
+        pair = cuda_ms(lambda: torch.cholesky_solve(
+            Bs, torch.linalg.cholesky_ex(As)[0]), 20)
+        out.append(dict(
+            name=name, route="cuda", source="kinpoly_tpu_torch/csrc/chol.cu",
+            replaces="kinpoly_tpu/physics/pallas_chol.py:124",
+            launches=None, max_abs_err=err,
+            ms=cuda_ms(lambda: chol_cuda.solve_only(As, Bs), 50),
+            plain_ms=cuda_ms(lambda: chol.solve_only(As, Bs), 3),
+            bound_ms=b, bound_by=by,
+            library_ms=cuda_ms(lambda: torch.linalg.solve(As, Bs), 20),
+            library="torch.linalg.solve"))
+        msgs.append(f"{name} err {err:.3g} (substep rel {rel:.3g}) "
+                    f"{out[-1]['ms']:.4f} ms, cholesky_ex+cholesky_solve "
+                    f"{pair:.4f} ms")
+
+    # K4b and K4c: no engine caller; timed on the substep's M at R = 55
+    Ms, Bs = sub[55]
+    B = torch.randn(N_ENVS, n, 55, generator=gen, device=device)
+    L, X = chol_cuda.factor_solve(A, B)
+    L_p, X_p = chol.factor_solve(A, B)
+    if bool(torch.triu(L, 1).any()):
+        fail("chol_factor_solve: L has entries above the diagonal")
+    L64 = torch.linalg.cholesky(A.double())
+    err_b = max(gate("chol_factor_solve L", L, L_p, L64),
+                gate("chol_factor_solve X", X, X_p,
+                     torch.linalg.solve(A.double(), B.double())))
+    err_c = gate("chol_apply", chol_cuda.apply(L_p, B), chol.apply(L_p, B),
+                 torch.cholesky_solve(B.double(), L_p.double()))
+    b, by = chol_bound(N_ENVS, n, 55, factor=True, l_out=True)
+    out.append(dict(
+        name="chol_factor_solve[R=55]", route="cuda",
+        source="kinpoly_tpu_torch/csrc/chol.cu",
+        replaces="kinpoly_tpu/physics/pallas_chol.py:160",
+        launches=None, max_abs_err=err_b,
+        ms=cuda_ms(lambda: chol_cuda.factor_solve(Ms, Bs), 50),
+        plain_ms=cuda_ms(lambda: chol.factor_solve(Ms, Bs), 3),
+        bound_ms=b, bound_by=by,
+        library_ms=cuda_ms(lambda: torch.cholesky_solve(
+            Bs, torch.linalg.cholesky_ex(Ms)[0]), 20),
+        library="torch.linalg.cholesky_ex + torch.cholesky_solve (two calls)"))
+    Ls = chol.factor(Ms)
+    b, by = chol_bound(N_ENVS, n, 55, factor=False, l_out=False)
+    out.append(dict(
+        name="chol_apply[R=55]", route="cuda",
+        source="kinpoly_tpu_torch/csrc/chol.cu",
+        replaces="kinpoly_tpu/physics/pallas_chol.py:197",
+        launches=None, max_abs_err=err_c,
+        ms=cuda_ms(lambda: chol_cuda.apply(Ls, Bs), 50),
+        plain_ms=cuda_ms(lambda: chol.apply(Ls, Bs), 3),
+        bound_ms=b, bound_by=by,
+        library_ms=cuda_ms(lambda: torch.cholesky_solve(Bs, Ls), 20),
+        library="torch.cholesky_solve"))
+    msgs.append(f"factor_solve err {err_b:.3g} {out[-2]['ms']:.4f} ms | "
+                f"apply err {err_c:.3g} {out[-1]['ms']:.4f} ms")
+    return out, msgs
+
+
+def control_step_parity(card_model, cpu_model, bank_qpos) -> float:
+    """Max abs difference of qpos/qvel after one control step of 4 envs,
+    card model against CPU model, from seeded states near the clips."""
+    import torch
+    from kinpoly_tpu_torch.physics import engine as eng
+
+    rng = np.random.RandomState(7)
+    q0 = bank_qpos[:4, 0].double().cpu().numpy()
+    qpos = q0.copy()
+    qpos[:, 7:] += rng.uniform(-0.05, 0.05, (4, 69))
+    qvel = rng.normal(0, 0.3, (4, 75))
+    action = rng.normal(0, 0.2, (4, 75))
+    base_rot = np.asarray([0.7071, 0.7071, 0.0, 0.0], np.float32)
+    outs = []
+    for m in (card_model, cpu_model):
+        t = lambda x: torch.as_tensor(x, dtype=m.dtype, device=m.device)
+        s = eng.control_step(m, eng.SimState(t(qpos), t(qvel)), t(action),
+                             t(q0[:, 7:]), t(base_rot))
+        outs.append([x.double().cpu() for x in s])
+    return max(float((a - b).abs().max()) for a, b in zip(*outs))
+
+
+def run_training(device, iters: int, **model_kw) -> dict:
+    """`iters` train_epoch calls of the uhc.yml agent at TRAIN_ENVS envs and
+    TRAIN_STEPS control steps, through the kernels of the configuration
+    that `model_kw` selects; launch counters set to 0 just before and read
+    just after. Returns the launches, the timings and the agent."""
+    import torch
+    from kinpoly_tpu_torch import native
+    from kinpoly_tpu_torch.rl import ppo
+    from kinpoly_tpu_torch.scripts.train_uhc import build_trainer
+
+    agent, cfg = build_trainer(TRAIN_ENVS, TRAIN_STEPS, SLICE_CLIPS,
+                               SLICE_FRAMES, seed=0, device=device, **model_kw)
+    start = [p.detach().clone() for p in agent.policy.parameters()]
+    spent = {"rollout": 0.0, "ppo": 0.0}
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t
+            return res
+        return run
+
+    rollout, ppo_update = agent._rollout, ppo.ppo_update
+    agent._rollout = timed("rollout", rollout)
+    ppo.ppo_update = timed("ppo", ppo_update)
+    torch.cuda.synchronize()
+    native.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    try:
+        metrics = [agent.train_epoch(adaptive=cfg.adaptive_params(i))
+                   for i in range(iters)]
+        torch.cuda.synchronize()
+    finally:
+        agent._rollout, ppo.ppo_update = rollout, ppo_update
+    wall = time.perf_counter() - t0
+    launches = dict(native.LAUNCHES)
+    carry = agent._carry
+    finite = all(bool(torch.isfinite(x).all()) for x in
+                 (carry.obs, carry.env_state.sim.qpos, carry.env_state.sim.qvel))
+    for m in metrics:
+        vals = [m["policy_loss"], m["value_loss"], m["reward_mean"],
+                m["fail_frac"], *m["reward_components"]]
+        finite = finite and bool(np.isfinite(vals).all())
+    moved = max(float((p.detach() - s).abs().max())
+                for p, s in zip(agent.policy.parameters(), start))
+    steps = iters * TRAIN_STEPS
+    return dict(agent=agent, launches=launches, metrics=metrics,
+                finite=finite, moved=moved, s_per_iter=wall / iters,
+                ms_per_step=spent["rollout"] / steps * 1e3,
+                ppo_ms=spent["ppo"] / iters * 1e3, steps=steps)
+
+
+def checkpoint_round_trip(agent) -> bool:
+    """save_checkpoint into a temporary directory, load it into fresh nets
+    and norm: bit-identical policy outputs on the carried observations."""
+    import torch
+    from kinpoly_tpu_torch.models import nets, weights
+    from kinpoly_tpu_torch.rl import running_norm as rn
+    from kinpoly_tpu_torch.rl.agent_uhc import OBS_DIM
+
+    cfg = agent.cfg
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = weights.load_uhc_checkpoint(
+            agent.save_checkpoint(os.path.join(tmp, "iter_smoke.p")))
+    pol = nets.PolicyMCP(OBS_DIM, agent.env.action_dim,
+                         num_primitive=cfg.num_primitive,
+                         hidden=cfg.policy_hsize, activation=cfg.policy_htype,
+                         log_std_init=cfg.log_std, fix_std=cfg.fix_std)
+    pol = pol.to(device=agent.env.model.device, dtype=agent.env.model.dtype)
+    pol.load_state_dict(ck["policy"])
+    norm = rn.RunningNorm(*(x.to(agent.env.model.device) for x in ck["norm"]))
+    obs = agent._carry.obs
+    with torch.no_grad():
+        a = agent.policy(rn.apply(agent.norm, obs))
+        b = pol(rn.apply(norm, obs))
+    return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def main() -> None:
@@ -202,8 +440,10 @@ def main() -> None:
     model = eng.build_model(spec, uhc_control_params(spec), device=device)
     topo = model.topo
     calls = capture_substep(model, N_ENVS, 0)
-    if [len(calls[k]) for k in ("factor", "solve", "pgs")] != [2, 2, 1]:
-        fail(f"a substep made {[len(v) for v in calls.values()]} kernel calls")
+    if sorted((k, len(v)) for k, v in calls.items()) != [
+            ("factor", 2), ("pgs", 1), ("solve", 2)]:
+        fail(f"a substep made {[(k, len(v)) for k, v in calls.items()]} "
+             f"kernel calls")
     nv = topo.nv
     depth = topo.depth.astype(float)
     kernels = []
@@ -226,7 +466,8 @@ def main() -> None:
         name="ltdl_factor", route="cuda", source="kinpoly_tpu_torch/csrc/ltdl.cu",
         replaces="kinpoly_tpu/physics/pallas_ltdl.py:100",
         launches=None, max_abs_err=err1, ms=k1_ms, plain_ms=k1_plain,
-        bound_ms=b1, bound_by=by1, library_ms=k1_lib))
+        bound_ms=b1, bound_by=by1, library_ms=k1_lib,
+        library="torch.linalg.cholesky_ex"))
     if not err1 < LTDL_ATOL:
         fail(f"ltdl_factor max abs err {err1:.3g} >= {LTDL_ATOL}")
 
@@ -255,10 +496,13 @@ def main() -> None:
                       bound_ms=b2, bound_by=by2)
     if sorted(k2) != [1, 55]:
         fail(f"solve widths {sorted(k2)}, expected [1, 55]")
-    kernels.append(dict(
-        name="ltdl_solve", route="cuda", source="kinpoly_tpu_torch/csrc/ltdl.cu",
-        replaces="kinpoly_tpu/physics/pallas_ltdl.py:118",
-        launches=None, max_abs_err=err2, **k2[55]))
+    for nr in (55, 1):
+        kernels.append(dict(
+            name=f"ltdl_solve[R={nr}]", route="cuda",
+            source="kinpoly_tpu_torch/csrc/ltdl.cu",
+            replaces="kinpoly_tpu/physics/pallas_ltdl.py:118",
+            launches=None, max_abs_err=err2, **k2[nr],
+            library="torch.cholesky_solve"))
     if not err2 < LTDL_ATOL:
         fail(f"ltdl_solve max abs err {err2:.3g} >= {LTDL_ATOL}")
     if not rel2 < SOLVE_RTOL:
@@ -297,7 +541,7 @@ def main() -> None:
         launches=None, max_abs_err=err3,
         ms=cuda_ms(lambda: pgs_cuda.pgs_solve(*args[:6], iters), 50),
         plain_ms=cuda_ms(lambda: ct.psor_plain(*args[:6], iters), 2),
-        bound_ms=b3, bound_by=by3, library_ms=None))
+        bound_ms=b3, bound_by=by3, library_ms=None, library=None))
     if not ok3:
         fail(f"pgs_solve outside rtol {PGS_RTOL} atol {PGS_ATOL} "
              f"(max abs err {err3:.3g})")
@@ -308,9 +552,15 @@ def main() -> None:
         f"solve err {err2:.3g} (substep rhs rel {rel2:.3g}) R=1 {k2[1]['ms']:.4f} ms R=55 "
         f"{k2[55]['ms']:.4f} ms | pgs err {err3:.3g} (substep system: kernel "
         f"{ek:.3g}, plain {ep:.3g} from float64, max |f| "
-        f"{float(f_d.abs().max()):.3g}) {kernels[2]['ms']:.4f} ms "
-        f"({n_active:.0f} active blocks of {N_ENVS * K}); "
-        f"solve R=1 numbers: {json.dumps(k2[1])}", tp)
+        f"{float(f_d.abs().max()):.3g}) {kernels[-1]['ms']:.4f} ms "
+        f"({n_active:.0f} active blocks of {N_ENVS * K})", tp)
+
+    tp = time.perf_counter()
+    dense_model = eng.build_model(spec, uhc_control_params(spec), device=device,
+                                  use_pallas_chol=True)
+    chol_kernels, msgs = check_chol_kernels(dense_model, device)
+    kernels += chol_kernels
+    say("kernels", f"N={N_ENVS}, dense: " + " | ".join(msgs), tp)
 
     # 4. the slice: UHC evaluation through the kernels --------------------
     tp = time.perf_counter()
@@ -325,8 +575,8 @@ def main() -> None:
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t_run
     launches = dict(native.LAUNCHES)
-    expect = {"ltdl_factor": 30 * steps, "ltdl_solve": 30 * steps,
-              "pgs_solve": 15 * steps}
+    expect = {"ltdl_factor": 30 * steps, "ltdl_solve[R=1]": 15 * steps,
+              "ltdl_solve[R=55]": 15 * steps, "pgs_solve": 15 * steps}
     st = info["state"].sim
     finite = bool(torch.isfinite(st.qpos).all() and torch.isfinite(st.qvel).all())
     say("slice", f"{SLICE_CLIPS} clips x {steps} control steps: coverage {cov:.4f}, mean "
@@ -337,31 +587,73 @@ def main() -> None:
         fail(f"kernel launches {launches} != {expect}")
     if not finite or tuple(st.qpos.shape) != (SLICE_CLIPS, 76):
         fail("non-finite or misshapen state after the evaluation")
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
 
     # 5. parity: card (f32, kernels) against the CPU plain path (f64) -----
     tp = time.perf_counter()
     cpu_model = eng.build_model(spec, uhc_control_params(spec), device="cpu",
                                 dtype=torch.float64)
-    rng = np.random.RandomState(7)
-    q0 = agent.env.bank.qpos[:4, 0].double().cpu().numpy()
-    qpos = q0.copy()
-    qpos[:, 7:] += rng.uniform(-0.05, 0.05, (4, 69))
-    qvel = rng.normal(0, 0.3, (4, 75))
-    action = rng.normal(0, 0.2, (4, 75))
-    base_rot = np.asarray([0.7071, 0.7071, 0.0, 0.0], np.float32)
-    outs = []
-    for m in (model, cpu_model):
-        t = lambda x: torch.as_tensor(x, dtype=m.dtype, device=m.device)
-        s = eng.control_step(m, eng.SimState(t(qpos), t(qvel)), t(action),
-                             t(q0[:, 7:]), t(base_rot))
-        outs.append([x.double().cpu() for x in s])
-    perr = max(float((a - b).abs().max()) for a, b in zip(*outs))
+    bank_qpos = agent.env.bank.qpos
+    perr = control_step_parity(model, cpu_model, bank_qpos)
     say("parity", f"one control step, 4 envs, card f32 vs CPU f64: max abs "
         f"err {perr:.3g} (tol {PARITY_ATOL})", tp)
     if not perr < PARITY_ATOL:
         fail(f"card vs CPU parity error {perr:.3g}")
+    del agent
+
+    # 6. train: this slice's path, LTDL configuration ---------------------
+    tp = time.perf_counter()
+    tr = run_training(device, TRAIN_ITERS)
+    n = tr["steps"]
+    expect = {"ltdl_factor": 30 * n, "ltdl_solve[R=1]": 15 * n,
+              "ltdl_solve[R=55]": 15 * n, "pgs_solve": 15 * n}
+    same = checkpoint_round_trip(tr["agent"])
+    m = tr["metrics"][-1]
+    say("train", f"{TRAIN_ENVS} envs x {TRAIN_STEPS} steps x {TRAIN_ITERS} "
+        f"iterations: {tr['s_per_iter']:.2f} s per iteration, rollout "
+        f"{tr['ms_per_step']:.1f} ms per control step, PPO update "
+        f"{tr['ppo_ms']:.1f} ms; last iteration reward {m['reward_mean']:.4f} "
+        f"policy_loss {m['policy_loss']:.4g} value_loss {m['value_loss']:.4g}; "
+        f"launches {tr['launches']} (expected {expect}); finite "
+        f"{tr['finite']}; policy moved {tr['moved']:.3g}; checkpoint "
+        f"round trip identical {same}", tp)
+    if tr["launches"] != expect:
+        fail(f"training launches {tr['launches']} != {expect}")
+    if not tr["finite"]:
+        fail("non-finite loss, reward or state in training")
+    if not tr["moved"] > 0:
+        fail("the policy did not change in training")
+    if not same:
+        fail("a reloaded checkpoint gives other policy outputs")
+    for k in kernels:
+        k["launches"] = tr["launches"].get(k["name"], 0)
+    ltdl_ms = tr["ms_per_step"]
+    del tr
+
+    # 7. dense: the same training through K4a, and its parity ---------------
+    tp = time.perf_counter()
+    tr = run_training(device, 1, use_pallas_chol=True)
+    n = tr["steps"]
+    expect = {"chol_solve_only[R=1]": 15 * n, "chol_solve_only[R=55]": 15 * n,
+              "pgs_solve": 15 * n}
+    cpu_dense = eng.build_model(spec, uhc_control_params(spec), device="cpu",
+                                dtype=torch.float64, use_pallas_chol=True)
+    derr = control_step_parity(dense_model, cpu_dense, bank_qpos)
+    say("dense", f"{TRAIN_ENVS} envs x {TRAIN_STEPS} steps x 1 iteration: "
+        f"{tr['s_per_iter']:.2f} s, rollout {tr['ms_per_step']:.1f} ms per "
+        f"control step (LTDL {ltdl_ms:.1f}), PPO update {tr['ppo_ms']:.1f} "
+        f"ms; launches {tr['launches']} (expected {expect}); finite "
+        f"{tr['finite']}; one control step card f32 vs CPU f64 max abs err "
+        f"{derr:.3g} (tol {PARITY_ATOL})", tp)
+    if tr["launches"] != expect:
+        fail(f"dense training launches {tr['launches']} != {expect}")
+    if not tr["finite"]:
+        fail("non-finite loss, reward or state in dense training")
+    if not derr < PARITY_ATOL:
+        fail(f"dense card vs CPU parity error {derr:.3g}")
+    for k in kernels:
+        if k["name"].startswith("chol_solve_only"):
+            k["launches"] = tr["launches"][k["name"]]
+    del tr
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)

@@ -1,6 +1,7 @@
 """UHC configuration: the values of ``kinpoly_tpu/config/yaml/uhc.yml`` as a
-dataclass, and the per-joint stable-PD table (port of
-``kinpoly_tpu/config/defaults.py``).
+dataclass with the adaptive schedules and the training config derived from
+them (port of ``kinpoly_tpu/config/config.py`` ``UHCConfig``), and the
+per-joint stable-PD table (port of ``kinpoly_tpu/config/defaults.py``).
 
 The defaults below are copied from the YAML (the port reads no YAML); a test
 holds them against the YAML as the JAX package parses it.
@@ -123,11 +124,65 @@ class UHCConfig:
         """Where the trainer writes ``iter_*.p`` checkpoints."""
         return os.path.join(out_root, "motion_im", cfg_id, "models")
 
+    # adaptive schedules (reference copycat_config.py:149-166): uhc.yml sets
+    # none, so each is the one-point schedule the JAX config defaults to
+    @property
+    def adp_iter_cp(self) -> np.ndarray:
+        return np.asarray([0])
+
+    @property
+    def adp_noise_rate_cp(self) -> np.ndarray:
+        return np.asarray([1.0])
+
+    @property
+    def adp_log_std_cp(self) -> np.ndarray:
+        return np.asarray([self.log_std])
+
+    @property
+    def adp_policy_lr_cp(self) -> np.ndarray:
+        return np.asarray([self.policy_lr])
+
+    def adaptive_params(self, i_iter: int) -> dict:
+        """Linear interpolation between the schedules' checkpoints
+        (copycat_config.update_adaptive_params)."""
+        cp = self.adp_iter_cp
+        idx = int(np.searchsorted(cp, i_iter, side="right") - 1)
+        nxt = min(idx + 1, len(cp) - 1)
+        t = 0.0 if cp[nxt] == cp[idx] else (i_iter - cp[idx]) / (cp[nxt] - cp[idx])
+
+        def lerp(arr):
+            return float(arr[idx] * (1 - t) + arr[nxt] * t)
+
+        return dict(noise_rate=lerp(self.adp_noise_rate_cp),
+                    log_std=lerp(self.adp_log_std_cp),
+                    policy_lr=lerp(self.adp_policy_lr_cp))
+
     def env_config(self):
         from kinpoly_tpu_torch.envs.humanoid_im import EnvConfig
 
         return EnvConfig(
             obs_v=self.obs_v, obs_coord=self.obs_coord, obs_vel=self.obs_vel,
             env_term_body=self.env_term_body,
-            env_episode_len=self.env_episode_len, base_rot=self.base_rot,
-            reward_id=self.reward_id, **self.reward_weights)
+            env_episode_len=self.env_episode_len,
+            reactive_v=self.reactive_v, reactive_rate=self.reactive_rate,
+            base_rot=self.base_rot, reward_id=self.reward_id,
+            **self.reward_weights)
+
+    def train_config(self):
+        """The trainer's config (the fields the JAX ``train_config`` sets;
+        noise rate, success EWMA rate and gradient clip keep the
+        trainer's defaults)."""
+        from kinpoly_tpu_torch.rl.agent_uhc import UHCTrainConfig
+
+        return UHCTrainConfig(
+            n_envs=self.n_envs, rollout_steps=self.rollout_steps,
+            gamma=self.gamma, tau=self.tau, clip_epsilon=self.clip_epsilon,
+            num_optim_epoch=self.num_optim_epoch,
+            mini_batch_size=self.mini_batch_size,
+            policy_lr=self.policy_lr, value_lr=self.value_lr,
+            log_std=self.log_std, fix_std=self.fix_std,
+            actor_type=self.actor_type, num_primitive=self.num_primitive,
+            policy_hsize=self.policy_hsize, value_hsize=self.value_hsize,
+            policy_htype=self.policy_htype,
+            sampling_temp=self.sampling_temp, seed=self.seed,
+            save_model_interval=self.save_model_interval)

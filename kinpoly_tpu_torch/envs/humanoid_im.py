@@ -1,10 +1,14 @@
 """UHC motion-imitation environment (port of
 ``kinpoly_tpu/envs/humanoid_im.py``): observation v1, the
 ``world_rfc_implicit`` reward, body-distance termination, the non-finite
-guard, deterministic reset and fail-safe, over a batch of envs.
+guard, the deterministic (evaluation) and training resets, and the
+fail-safe, over a batch of envs.
 
-Every state tensor has a leading env dim N. Reactive reset and the hard
-state bank are training-only and not ported yet.
+Every state tensor has a leading env dim N. The training reset draws from
+the caller's ``torch.Generator``: joint noise (``env_init_noise``), and in
+"train" mode with probability ``reactive_rate`` a start from the neutral
+standing pose (``reactive_v`` 1) or from a hard-state bank (``reactive_v``
+2), matched to the expert's heading and position.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from kinpoly_tpu_torch.anim.spec import standing_pose
 from kinpoly_tpu_torch.config.defaults import b_diff_weights_pose, body_diff_weights
 from kinpoly_tpu_torch.core import tmath
 from kinpoly_tpu_torch.data import expert as exlib
@@ -32,6 +37,9 @@ class EnvConfig:
     body_diff_thresh: float = 0.5
     env_episode_len: int = 100000
     env_expert_trail_steps: int = 0
+    env_init_noise: float = 0.0
+    reactive_v: int = 1
+    reactive_rate: float = 0.3
     base_rot: tuple = (0.7071, 0.7071, 0.0, 0.0)
     reward_id: str = "world_rfc_implicit"
     w_p: float = 0.3
@@ -145,18 +153,29 @@ def select(mask: torch.Tensor, a: EnvState, b: EnvState) -> EnvState:
 
 
 class HumanoidImEnv:
-    """The UHC imitation env bound to a physics model, a config and an
-    expert bank; all methods act on a batch of envs."""
+    """The UHC imitation env bound to a physics model, a config, an expert
+    bank and the neutral standing pose (default: the spec's
+    ``standing_pose``); all methods act on a batch of envs. ``hard_states``
+    (qpos (K, 76), qvel (K, 75)) is the reactive_v 2 start bank."""
 
     def __init__(self, model: eng.PhysicsModel, cfg: EnvConfig,
-                 bank: exlib.ExpertClip):
+                 bank: exlib.ExpertClip, neutral_qpos=None, neutral_qvel=None,
+                 mode: str = "train", hard_states: tuple | None = None):
         if cfg.obs_v != 1 or cfg.env_term_body != "body":
             raise ValueError("the port has observation v1 and body-distance "
                              "termination only")
         self.model = model
         self.cfg = cfg
         self.bank = bank
+        self.mode = mode
         dtype, device = model.dtype, model.device
+        if neutral_qpos is None:
+            neutral_qpos, neutral_qvel = standing_pose(model.spec)
+        t = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+        self.neutral_qpos = t(neutral_qpos)
+        self.neutral_qvel = t(neutral_qvel)
+        self.hard_states = (None if hard_states is None
+                            else tuple(t(x) for x in hard_states))
         # the JAX env keeps base_rot in float32 whatever the physics dtype
         self.base_rot = torch.tensor(cfg.base_rot, dtype=torch.float32).to(
             dtype=dtype, device=device)
@@ -243,19 +262,57 @@ class HumanoidImEnv:
         obs = self.get_obs(new_state, fk_res)
         return new_state, obs, reward, done, StepInfo(fail, end, percent, rinfo)
 
-    def reset(self, clip_idx: torch.Tensor, start_ind: int = 0):
-        """Deterministic reset: each env starts exactly on its clip's frame
-        `start_ind` (the evaluation semantics)."""
+    def reset(self, clip_idx: torch.Tensor, start_ind: int = 0,
+              deterministic: bool = True,
+              generator: torch.Generator | None = None):
+        """Each env starts on its clip's frame `start_ind`. Deterministic by
+        default (the evaluation semantics: the reference's test-mode reset
+        skips reactive init and noise); ``deterministic=False`` is the
+        training reset, drawing from `generator` (one draw per env, fixed
+        shapes whatever the draws give)."""
+        cfg = self.cfg
         clip_idx = torch.as_tensor(clip_idx, device=self.model.device)
         start = torch.full_like(clip_idx, start_ind)
         f0 = exlib.bank_frame(self.bank, clip_idx, start)
+        qpos, qvel = f0.qpos, f0.qvel
+        if not deterministic:
+            if generator is None:
+                raise ValueError("the training reset needs a generator")
+            n = clip_idx.shape[0]
+            draw = dict(generator=generator, dtype=qpos.dtype, device=qpos.device)
+            if cfg.env_init_noise > 0:
+                noise = cfg.env_init_noise * torch.randn(n, qpos.shape[-1] - 7, **draw)
+                qpos = torch.cat([qpos[..., :7], qpos[..., 7:] + noise], dim=-1)
+            if self.mode == "train" and (cfg.reactive_v == 1 or (
+                    cfg.reactive_v == 2 and self.hard_states is not None)):
+                use = (torch.rand(n, **draw) < cfg.reactive_rate)[:, None]
+                if cfg.reactive_v == 1:
+                    q2, v2 = self.neutral_qpos, self.neutral_qvel
+                else:
+                    hq, hv = self.hard_states
+                    k = torch.randint(0, hq.shape[0], (n,), generator=generator,
+                                      device=qpos.device)
+                    q2, v2 = hq[k], hv[k]
+                q2 = self.match_heading_and_pos(qpos, q2.expand_as(qpos))
+                qpos = torch.where(use, q2, qpos)
+                qvel = torch.where(use, v2.expand_as(qvel), qvel)
         zero = torch.zeros_like(clip_idx, dtype=torch.bool)
         state = EnvState(
-            sim=eng.SimState(qpos=f0.qpos, qvel=f0.qvel),
+            sim=eng.SimState(qpos=qpos, qvel=qvel),
             cur_t=torch.zeros_like(clip_idx), start_ind=start,
-            prev_bquat=fklib.body_quat_sim(f0.qpos), clip_idx=clip_idx,
+            prev_bquat=fklib.body_quat_sim(qpos), clip_idx=clip_idx,
             done=zero, fail=zero)
         return state, self.get_obs(state)
+
+    def match_heading_and_pos(self, qpos_1: torch.Tensor,
+                              qpos_2: torch.Tensor) -> torch.Tensor:
+        """qpos_2's pose with qpos_1's xy position and heading (reference
+        humanoid_im.py:636-644)."""
+        q1 = tmath.quat_mul(qpos_1[..., 3:7], tmath.quat_conj(self.base_rot))
+        new_rot = tmath.quat_mul(tmath.heading_q(q1),
+                                 tmath.de_heading(qpos_2[..., 3:7]))
+        return torch.cat([qpos_1[..., :2], qpos_2[..., 2:3], new_rot,
+                          qpos_2[..., 7:]], dim=-1)
 
     def fail_safe(self, state: EnvState) -> EnvState:
         """Teleport the sim to the expert pose."""

@@ -1,19 +1,31 @@
-"""Core networks (port of ``kinpoly_tpu/models/nets.py``): MLP, value, and
-the multiplicative compositional (MCP) policy of UHC.
+"""Core networks (port of ``kinpoly_tpu/models/nets.py``): MLP, value, the
+multiplicative compositional (MCP) policy of UHC, and the diagonal-Gaussian
+log-density.
 
 Layer names follow the flax modules so that ``models/weights.py`` maps a
-flax parameter tree onto these state dicts one to one.
+flax parameter tree onto these state dicts one to one. Fresh parameters
+follow flax's initialisation (``init_flax_``), not torch's.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
 from torch import nn
 
+# stddev of a unit normal truncated to [-2, 2] (jax.nn.initializers)
+_TRUNC_STD = 0.87962566103423978
+
 _ACT = {"relu": torch.relu, "tanh": torch.tanh, "sigmoid": torch.sigmoid,
         "gelu": nn.functional.gelu}
+
+
+def _linear(a: int, b: int) -> nn.Linear:
+    """An uninitialised Linear (its values come from a checkpoint or
+    ``init_flax_``; torch's own init would draw from the global RNG)."""
+    return nn.utils.skip_init(nn.Linear, a, b)
 
 
 class MLP(nn.Module):
@@ -21,7 +33,7 @@ class MLP(nn.Module):
                  activation: str = "relu"):
         super().__init__()
         dims = (in_dim,) + tuple(hidden)
-        self.layers = nn.ModuleList(nn.Linear(a, b) for a, b in zip(dims, dims[1:]))
+        self.layers = nn.ModuleList(_linear(a, b) for a, b in zip(dims, dims[1:]))
         self.act = _ACT[activation]
 
     def forward(self, x):
@@ -37,7 +49,7 @@ class Value(nn.Module):
                  activation: str = "relu"):
         super().__init__()
         self.mlp = MLP(in_dim, hidden, activation)
-        self.head = nn.Linear(tuple(hidden)[-1], 1)
+        self.head = _linear(tuple(hidden)[-1], 1)
 
     def forward(self, x):
         return self.head(self.mlp(x))[..., 0]
@@ -75,21 +87,64 @@ class PrimitiveBank(nn.Module):
 
 class PolicyMCP(nn.Module):
     """P primitive heads mixed by a softmax composer; mean = sum_i w_i mu_i.
-    The log-std is fixed (``fix_std``, as UHC trains it)."""
+    The log-std is fixed with ``fix_std`` (as uhc.yml trains it), else a
+    learnable (action_dim,) parameter ``log_std``."""
 
     def __init__(self, in_dim: int, action_dim: int, num_primitive: int = 8,
                  hidden: Sequence[int] = (512, 256),
                  composer_hidden: Sequence[int] = (300, 200),
-                 activation: str = "relu", log_std_init: float = -2.3):
+                 activation: str = "relu", log_std_init: float = -2.3,
+                 fix_std: bool = True):
         super().__init__()
         self.bank = PrimitiveBank(in_dim, num_primitive, hidden, action_dim,
                                   activation)
         self.composer = MLP(in_dim, composer_hidden, activation)
-        self.composer_head = nn.Linear(tuple(composer_hidden)[-1], num_primitive)
+        self.composer_head = _linear(tuple(composer_hidden)[-1], num_primitive)
         self.log_std_init = log_std_init
+        self.fix_std = fix_std
+        if not fix_std:
+            self.log_std = nn.Parameter(torch.full((action_dim,), log_std_init))
 
     def forward(self, x):
         prims = self.bank(x)
         w = torch.softmax(self.composer_head(self.composer(x)), dim=-1)
         mean = torch.einsum("...p,...pa->...a", w, prims)
-        return mean, torch.full_like(mean, self.log_std_init)
+        if self.fix_std:
+            return mean, torch.full_like(mean, self.log_std_init)
+        return mean, self.log_std.expand(mean.shape)
+
+
+@torch.no_grad()
+def init_flax_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Fresh parameters as flax initialises them: every kernel lecun-normal
+    (a normal truncated at 2 sigma, variance 1 / fan_in; the primitive
+    bank's (P, in, out) weights per primitive, fan_in = in), every bias 0,
+    ``log_std`` at its initial value. Draws from `generator`, which must
+    live on the parameters' device."""
+    for m in module.modules():
+        if isinstance(m, nn.Linear):
+            _lecun_normal_(m.weight, m.in_features, generator)
+            m.bias.zero_()
+        elif isinstance(m, PrimitiveBank):
+            for out, d in m.shapes:
+                _lecun_normal_(getattr(m, f"w_{out}_{d}"), d, generator)
+                getattr(m, f"b_{out}_{d}").zero_()
+        elif isinstance(m, PolicyMCP) and not m.fix_std:
+            m.log_std.fill_(m.log_std_init)
+    return module
+
+
+def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator):
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                          generator=generator)
+
+
+def gaussian_log_prob(x: torch.Tensor, mean: torch.Tensor,
+                      log_std: torch.Tensor) -> torch.Tensor:
+    """Log-density of a diagonal Gaussian, summed over the last dim."""
+    var = torch.exp(2.0 * log_std)
+    half_log_2pi = 0.5 * torch.log(torch.tensor(2 * math.pi, dtype=torch.float64)
+                                   ).to(dtype=x.dtype, device=x.device)
+    lp = -((x - mean) ** 2) / (2 * var) - half_log_2pi - log_std
+    return lp.sum(dim=-1)

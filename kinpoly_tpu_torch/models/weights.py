@@ -1,5 +1,5 @@
-"""Load a trained UHC checkpoint (``results/motion_im/uhc/models/iter_*.p``)
-into the port.
+"""Read and write UHC checkpoints (``results/motion_im/uhc/models/iter_*.p``)
+in the JAX package's layout.
 
 The checkpoints are plain pickles of numpy arrays: flax parameter trees for
 the policy and the value net, and a ``kinpoly_tpu.rl.running_norm.RunningNorm``.
@@ -8,9 +8,10 @@ admits numpy's array reconstructors and nothing else, so neither JAX nor the
 JAX package is imported and no other code can run. The file is read in
 place.
 
-Flax ``Dense`` kernels (in, out) become torch ``Linear`` weights (out, in);
-the primitive bank's stacked (P, in, out) weights keep their layout
-(``kinpoly_tpu/models/torch_import.py`` holds the reverse mapping).
+Flax ``Dense`` kernels (in, out) become torch ``Linear`` weights (out, in)
+and back; the primitive bank's stacked (P, in, out) weights and a learnable
+``log_std`` keep their layout. ``policy_params``/``value_params`` give the
+flax trees (nested dicts of numpy arrays) that the port's trainer saves.
 """
 
 from __future__ import annotations
@@ -72,6 +73,8 @@ def policy_state_dict(params: dict) -> dict:
     sd = {f"bank.{k}": _t(v) for k, v in p["_PrimitiveBank_0"].items()}
     sd.update(_mlp("composer", p["MLP_0"]))
     sd.update(_dense("composer_head", p["Dense_0"]))
+    if "log_std" in p:
+        sd["log_std"] = _t(p["log_std"])
     return sd
 
 
@@ -83,12 +86,47 @@ def value_state_dict(params: dict) -> dict:
     return sd
 
 
+def _np(x: torch.Tensor) -> np.ndarray:
+    return x.detach().cpu().numpy().copy()
+
+
+def _flax_dense(sd: dict, prefix: str) -> dict:
+    return {"kernel": _np(sd[f"{prefix}.weight"]).T.copy(),
+            "bias": _np(sd[f"{prefix}.bias"])}
+
+
+def _flax_mlp(sd: dict, prefix: str) -> dict:
+    n = len({k.split(".")[2] for k in sd if k.startswith(f"{prefix}.layers.")})
+    return {f"Dense_{i}": _flax_dense(sd, f"{prefix}.layers.{i}")
+            for i in range(n)}
+
+
+def policy_params(sd: dict) -> dict:
+    """``nets.PolicyMCP`` state dict -> flax PolicyMCP params."""
+    p = {"_PrimitiveBank_0": {k[len("bank."):]: _np(v) for k, v in sd.items()
+                              if k.startswith("bank.")},
+         "MLP_0": _flax_mlp(sd, "composer"),
+         "Dense_0": _flax_dense(sd, "composer_head")}
+    if "log_std" in sd:
+        p["log_std"] = _np(sd["log_std"])
+    return {"params": p}
+
+
+def value_params(sd: dict) -> dict:
+    """``nets.Value`` state dict -> flax Value params."""
+    return {"params": {"MLP_0": _flax_mlp(sd, "mlp"),
+                       "Dense_0": _flax_dense(sd, "head")}}
+
+
 def load_uhc_checkpoint(path: str) -> dict:
     """{"policy": state dict, "value": state dict, "norm": RunningNorm of
-    float32 tensors, "epoch": int} from a UHC checkpoint."""
+    tensors as saved (float32 from the JAX trainer), "epoch": int,
+    "success_ewma"/"seen": the clip mining history or None} from a UHC
+    checkpoint."""
     blob = read_checkpoint(path)
     count, mean, m2 = blob["norm"]
     return dict(policy=policy_state_dict(blob["policy_params"]),
                 value=value_state_dict(blob["value_params"]),
                 norm=RunningNorm(_t(count), _t(mean), _t(m2)),
-                epoch=int(blob["epoch"]))
+                epoch=int(blob["epoch"]),
+                success_ewma=blob.get("success_ewma"), seen=blob.get("seen"))

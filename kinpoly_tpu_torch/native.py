@@ -6,8 +6,9 @@ The library goes to ``build/kinpoly_tpu_torch/`` at the repository root,
 named by a hash of the sources and flags, so it is rebuilt whenever a source
 changes and reused otherwise. Nothing is built or loaded at import time.
 
-``LAUNCHES`` counts kernel launches by name: each wrapper adds one where it
-launches its kernel, and nowhere else.
+``LAUNCHES`` counts kernel launches by name (multi-RHS kernels by name and
+width, ``name[R=r]``): each wrapper adds one where it launches its kernel,
+and nowhere else.
 """
 
 from __future__ import annotations
@@ -37,6 +38,9 @@ _SIGNATURES = {
     "ltdl_factor": (_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P),
     "ltdl_solve": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "pgs_solve": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "chol_solve_only": (_P, _P, _P, _I, _I, _I, _P),
+    "chol_factor_solve": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "chol_apply": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 

@@ -1,7 +1,7 @@
 """Articulated rigid-body dynamics of the SMPL humanoid (port of
 ``kinpoly_tpu/physics/dynamics.py``): world-frame Plücker algebra anchored at
 the world origin over the 75-dof tree; CRBA mass matrix and RNEA bias force
-as batched einsums.
+as batched einsums; the dense SPD solve of the ``solver="dense"`` engine.
 
 Motion vectors are (omega, v0), force vectors (n0, f). Free-joint linear
 qvel is in the world frame, angular qvel in the body frame (MuJoCo).
@@ -164,3 +164,17 @@ def bias_force(tables: DynamicsTables, ks: KinState, qvel: torch.Tensor,
                     torch.einsum("...bxy,...by->...bx", ks.ic_world, v_body))
     return torch.einsum("...jx,jb,...bx->...j", ks.phi, tables.anc_dof_body,
                         f_body)
+
+
+def chol_solve(M: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """Batched SPD solve through PyTorch's Cholesky; rhs (..., n) or
+    (..., n, k). The dense solver without the kernel: the JAX package leaves
+    this to XLA's library routines. A matrix that is not SPD gives NaN, as
+    XLA's Cholesky does (``cholesky_ex`` neither raises nor syncs)."""
+    L, info = torch.linalg.cholesky_ex(M)
+    L = torch.where((info == 0)[..., None, None], L, torch.nan)
+    vec = rhs.dim() == M.dim() - 1
+    b = rhs[..., None] if vec else rhs
+    y = torch.linalg.solve_triangular(L, b, upper=False)
+    x = torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)
+    return x[..., 0] if vec else x

@@ -3,18 +3,25 @@
 implicit residual force control, soft floor contacts and joint limits,
 semi-implicit Euler.
 
-Per substep: FK and the motion subspaces, RNEA bias force, packed CRBA, two
-LTDL factorizations (M and M + Kd dt, kernel K1), the stable-PD solve
-(kernel K2, one right-hand side), planned floor and joint-limit contacts,
-the fused multi-RHS solve [tau - C, J^T] (kernel K2, 1 + 54 columns), the
-Delassus build J M^-1 J^T, PSOR (kernel K3), integration. A control step is
-one contact plan and ``n_substeps`` substeps under a fixed action. On a
-CUDA device the solves always run the kernels; CPU tensors take their plain
-versions (``ltdl.factor``/``ltdl.solve``, ``contact.psor_plain``).
+Per substep: FK and the motion subspaces, RNEA bias force, the two SPD
+systems M + Kd dt and M, the stable-PD solve (one right-hand side), planned
+floor and joint-limit contacts, the fused multi-RHS solve [tau - C, J^T]
+(1 + 54 columns), the Delassus build J M^-1 J^T, PSOR (kernel K3),
+integration. A control step is one contact plan and ``n_substeps`` substeps
+under a fixed action.
+
+Two SPD solvers, as in the JAX package. ``solver="ltdl"`` (the default;
+``"pallas_ltdl"`` names the same route): packed CRBA and two tree-sparse
+LTDL factorizations (kernel K1) with their solves (kernel K2).
+``solver="dense"``: the dense CRBA mass matrix, solved by PyTorch's
+Cholesky, or by kernel K4a with ``use_pallas_chol`` (which, as in JAX,
+makes "dense" the default solver). On a CUDA device the kernels always run;
+CPU tensors take their plain versions (``ltdl.factor``/``ltdl.solve``,
+``chol.solve_only``, ``contact.psor_plain``).
 
 Not ported here (AR-only or opt-in in the JAX package): movable objects,
 split object-floor rows, active-set compaction, meta-PD gains, explicit
-RFC, the contacts-off substep, and the dense Cholesky solver.
+RFC and the contacts-off substep.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ from kinpoly_tpu_torch.core import tmath
 from kinpoly_tpu_torch.physics import contact as ct
 from kinpoly_tpu_torch.physics import dynamics as dyn
 from kinpoly_tpu_torch.physics import fk as fklib
-from kinpoly_tpu_torch.physics import ltdl, ltdl_cuda, pgs_cuda
+from kinpoly_tpu_torch.physics import chol_cuda, ltdl, ltdl_cuda, pgs_cuda
 
 
 class SimState(NamedTuple):
@@ -91,6 +98,10 @@ class PhysicsModel:
     plan_oversample: int = 2
     # |qvel| cap per substep (stops the v^2 Coriolis blow-up loop)
     qvel_clip: float = 100.0
+    # SPD solver: "ltdl" (packed tree-sparse LTDL, kernels K1/K2) or
+    # "dense" (dense Cholesky; kernel K4a with use_pallas_chol)
+    solver: str = "ltdl"
+    use_pallas_chol: bool = False
 
     @property
     def dt(self) -> float:
@@ -112,8 +123,15 @@ class PhysicsModel:
 def build_model(spec: HumanoidSpec, ctrl: ControlParams, device=None,
                 dtype: torch.dtype = torch.float32, **kw) -> PhysicsModel:
     """The physics model on `device` (CUDA unless the caller passes
-    another device)."""
+    another device). ``use_pallas_chol=True`` makes ``solver="dense"`` the
+    default; ``"pallas_ltdl"`` is accepted as a name of ``"ltdl"``."""
     device = resolve_device(device)
+    if kw.get("use_pallas_chol"):
+        kw.setdefault("solver", "dense")
+    if kw.get("solver") == "pallas_ltdl":
+        kw["solver"] = "ltdl"
+    if kw.get("solver", "ltdl") not in ("ltdl", "dense"):
+        raise ValueError(f"unknown solver {kw['solver']!r}")
     cand_verts, cand_body = ct.select_contact_vertices(
         spec, per_body=ct.FOOT_BODIES, default_k=4)
     tables = dyn.build_tables(spec, dtype, device)
@@ -209,12 +227,26 @@ def substep(model: PhysicsModel, state: SimState, ctrl_joint, vf, base_pos,
     kd_full = torch.cat(
         [zeros6, model.ctrl_t.jkd.expand(qpos.shape[:-1] + (69,))], dim=-1)
 
-    R = ltdl.crba_packed(st, tables, topo, ks)
-    Rf_A = ltdl_cuda.factor(topo, ltdl.add_diag(topo, R, kd_full * model.dt))
-    Rf_M = ltdl_cuda.factor(topo, R.contiguous())
+    if model.solver == "ltdl":
+        R = ltdl.crba_packed(st, tables, topo, ks)
+        Rf_A = ltdl_cuda.factor(topo, ltdl.add_diag(topo, R, kd_full * model.dt))
+        Rf_M = ltdl_cuda.factor(topo, R.contiguous())
 
-    def solve_A(rhs):
-        return ltdl_cuda.solve(topo, Rf_A, rhs[..., None].contiguous())[..., 0]
+        def solve_A(rhs):
+            return ltdl_cuda.solve(topo, Rf_A, rhs[..., None].contiguous())[..., 0]
+
+        def solve_M(B):
+            return ltdl_cuda.solve(topo, Rf_M, B.contiguous())
+    else:
+        M = dyn.mass_matrix(st, tables, ks)
+        M_pd = M + torch.diag_embed(kd_full * model.dt)
+        spd = chol_cuda.solve_only if model.use_pallas_chol else dyn.chol_solve
+
+        def solve_A(rhs):
+            return spd(M_pd, rhs[..., None].contiguous())[..., 0]
+
+        def solve_M(B):
+            return spd(M, B.contiguous())
 
     torque = compute_torque(model, qpos, qvel, ctrl_joint, base_pos, C, solve_A)
     tau = torch.cat([rfc_implicit(model, qpos, vf, base_rot), torque], dim=-1)
@@ -244,7 +276,7 @@ def substep(model: PhysicsModel, state: SimState, ctrl_joint, vf, base_pos,
 
     # one fused multi-RHS solve: [tau - C, J^T] -> [qacc_smooth, M^-1 J^T]
     B = torch.cat([(tau - C)[..., None], J.transpose(-1, -2)], dim=-1)
-    X = ltdl_cuda.solve(topo, Rf_M, B.contiguous())
+    X = solve_M(B)
     qacc = X[..., 0]
     MiJt = X[..., 1:]
 

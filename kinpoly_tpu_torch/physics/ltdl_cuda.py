@@ -4,7 +4,8 @@
 Both take the engine's batch-leading layout directly: packed rows
 (..., nv, Dmax+1) and right-hand sides (..., nv, R), float32, contiguous,
 on a CUDA device. A CPU tensor goes to the plain version in ``ltdl``; a CUDA
-tensor launches the kernel or raises.
+tensor launches the kernel or raises. Solve launches are counted per
+right-hand-side width, as ``ltdl_solve[R=r]``.
 """
 
 from __future__ import annotations
@@ -81,5 +82,5 @@ def solve(topo: ltdl.LTDLTopo, Rf: torch.Tensor, B: torch.Tensor) -> torch.Tenso
         Rf.data_ptr(), B.data_ptr(), X.data_ptr(), anc.data_ptr(),
         depth.data_ptr(), order.data_ptr(), n, nv, dp1, nr,
         torch.cuda.current_stream(B.device).cuda_stream)
-    native.check_launch("ltdl_solve", rc)
+    native.check_launch(f"ltdl_solve[R={nr}]", rc)
     return X

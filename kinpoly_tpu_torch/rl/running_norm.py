@@ -1,5 +1,7 @@
 """Running observation normalisation (port of
-``kinpoly_tpu/rl/running_norm.py``; the reference ZFilter, clip +-5)."""
+``kinpoly_tpu/rl/running_norm.py``; the reference ZFilter, clip +-5): the
+(count, mean, M2) state, batch updates by Chan's parallel merge, and the
+clipped standardisation."""
 
 from __future__ import annotations
 
@@ -12,6 +14,28 @@ class RunningNorm(NamedTuple):
     count: torch.Tensor   # ()
     mean: torch.Tensor    # (d,)
     m2: torch.Tensor      # (d,) sum of squared deviations
+
+
+def init(dim: int, device=None) -> RunningNorm:
+    """Empty stats in float32, as the JAX package keeps them."""
+    z = torch.zeros(dim, dtype=torch.float32, device=device)
+    return RunningNorm(z.new_zeros(()), z, z.clone())
+
+
+def update_batch(rn: RunningNorm, x: torch.Tensor) -> RunningNorm:
+    """Fold a batch x (..., d) into the stats (Chan's parallel merge). The
+    count keeps its float32, as in JAX; mean and M2 take the wider of their
+    own and the batch's dtype."""
+    flat = x.reshape(-1, x.shape[-1])
+    n_b = torch.tensor(flat.shape[0], dtype=rn.count.dtype,
+                       device=rn.count.device)
+    mean_b = flat.mean(dim=0)
+    m2_b = torch.sum((flat - mean_b) ** 2, dim=0)
+    n = rn.count + n_b
+    delta = mean_b - rn.mean
+    mean = rn.mean + delta * n_b / torch.clamp(n, min=1.0)
+    m2 = rn.m2 + m2_b + delta ** 2 * rn.count * n_b / torch.clamp(n, min=1.0)
+    return RunningNorm(count=n, mean=mean, m2=m2)
 
 
 def std(rn: RunningNorm) -> torch.Tensor:

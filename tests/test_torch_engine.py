@@ -122,3 +122,57 @@ def test_control_step_unplanned_matches_jax(models, kind):
     _close(st.qpos.numpy(), sj.qpos)
     if kind == "impact":
         assert float(np.asarray(sj.qvel)[:, 2].max()) > -3.0
+
+
+@pytest.fixture(scope="module")
+def dense_models(models):
+    """The dense solver: JAX's XLA Cholesky against the port's K4a route
+    (``use_pallas_chol``, the plain version on the CPU) and its PyTorch
+    Cholesky route; the same function in all three."""
+    spec, jm, tm = models
+    jm = dataclasses.replace(jm, solver="dense")
+    tms = {"k4a": dataclasses.replace(tm, solver="dense", use_pallas_chol=True),
+           "torch": dataclasses.replace(tm, solver="dense")}
+    return spec, jm, tms
+
+
+@pytest.mark.parametrize("kind", ["stand", "impact"])
+def test_dense_substep_matches_jax(dense_models, kind):
+    spec, jm, tms = dense_models
+    qpos, qvel, action, target = _case(spec, kind, seed=3)
+    jplan = jeng.build_contact_plan(jm, jnp.asarray(qpos))
+    sj = jax.jit(lambda *a: jeng.substep(jm, *a[:5], plan=a[5]))(
+        _jax_state(qpos, qvel), jnp.asarray(action[:, :69]),
+        jnp.asarray(action[:, 69:]), jnp.asarray(target),
+        jnp.asarray(BASE_ROT), jplan)
+    for tm in tms.values():
+        st = teng.substep(tm, _torch_state(qpos, qvel),
+                          torch.tensor(action[:, :69]),
+                          torch.tensor(action[:, 69:]), torch.tensor(target),
+                          torch.tensor(BASE_ROT).double(),
+                          plan=teng.build_contact_plan(tm, torch.tensor(qpos)))
+        _close(st.qvel.numpy(), sj.qvel)
+        _close(st.qpos.numpy(), sj.qpos)
+
+
+def test_dense_control_step_matches_jax(dense_models):
+    spec, jm, tms = dense_models
+    qpos, qvel, action, target = _case(spec, "impact", seed=4)
+    sj = jeng.control_step(jm, _jax_state(qpos, qvel), jnp.asarray(action),
+                           jnp.asarray(target), jnp.asarray(BASE_ROT))
+    st = teng.control_step(tms["k4a"], _torch_state(qpos, qvel),
+                           torch.tensor(action), torch.tensor(target),
+                           torch.tensor(BASE_ROT).double())
+    _close(st.qvel.numpy(), sj.qvel)
+    _close(st.qpos.numpy(), sj.qpos)
+
+
+def test_build_model_solver_names():
+    spec = sp.synthetic_spec(0)
+    ctrl = tdefaults.uhc_control_params(spec)
+    build = lambda **kw: teng.build_model(spec, ctrl, device="cpu", **kw)
+    assert build(use_pallas_chol=True).solver == "dense"
+    assert build(solver="pallas_ltdl").solver == "ltdl"
+    assert build().solver == "ltdl"
+    with pytest.raises(ValueError):
+        build(solver="qr")

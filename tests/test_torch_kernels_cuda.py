@@ -15,10 +15,11 @@ from kinpoly_tpu_torch import native
 from kinpoly_tpu_torch.anim import spec as sp
 from kinpoly_tpu_torch.physics import contact as ct
 from kinpoly_tpu_torch.physics import dynamics as dyn
-from kinpoly_tpu_torch.physics import ltdl, ltdl_cuda, pgs_cuda
+from kinpoly_tpu_torch.physics import chol, chol_cuda, ltdl, ltdl_cuda, pgs_cuda
 
 LTDL_ATOL = 1e-3            # as tests/test_pallas_ltdl.py:48,60
 PGS_RTOL, PGS_ATOL = 2e-4, 2e-5   # as tests/test_pallas_pgs.py:69
+CHOL_TOL = 5e-3             # as tests/test_pallas_chol.py:22-47
 
 pytestmark = pytest.mark.cuda
 
@@ -99,3 +100,64 @@ def test_wrappers_reject_what_the_kernels_do_not_take(packed):
         ltdl_cuda.factor(topo, R[::2])
     with pytest.raises(ValueError):
         ltdl_cuda.solve(topo, R, torch.zeros(3, 75, 1, device=R.device))
+
+
+@pytest.fixture(scope="module")
+def spd(cuda):
+    """37 SPD systems built as tests/test_pallas_chol.py builds them."""
+    rng = np.random.RandomState(5)
+    J = rng.randn(37, 75, 83)
+    A = J @ np.swapaxes(J, -1, -2) + np.eye(75) * 7.5
+    return torch.tensor(A, dtype=torch.float32, device=cuda), rng
+
+
+@pytest.mark.parametrize("nr", [1, 55])
+def test_chol_solve_only_kernel(spd, nr):
+    A, rng = spd
+    B = torch.tensor(rng.normal(size=(37, 75, nr)), dtype=torch.float32,
+                     device=A.device)
+    key = f"chol_solve_only[R={nr}]"
+    before = native.LAUNCHES[key]
+    X = chol_cuda.solve_only(A, B)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES[key] == before + 1
+    assert float((X - chol.solve_only(A, B)).abs().max()) < CHOL_TOL
+    ref = np.linalg.solve(A.double().cpu().numpy(), B.double().cpu().numpy())
+    np.testing.assert_allclose(X.cpu().numpy(), ref, rtol=CHOL_TOL, atol=CHOL_TOL)
+
+
+def test_chol_factor_solve_and_apply_kernels(spd):
+    A, rng = spd
+    B = torch.tensor(rng.normal(size=(37, 75, 55)), dtype=torch.float32,
+                     device=A.device)
+    # only the lower triangle is read
+    A_u = A + torch.triu(torch.full_like(A, 1e3), 1)
+    L, X = chol_cuda.factor_solve(A_u, B)
+    L_p, X_p = chol.factor_solve(A, B)
+    torch.cuda.synchronize()
+    assert float((L - L_p).abs().max()) < CHOL_TOL
+    assert not torch.triu(L, 1).any()
+    assert float((X - X_p).abs().max()) < CHOL_TOL
+    X2 = chol_cuda.apply(L_p + torch.triu(torch.ones_like(L_p), 1), B)
+    assert float((X2 - chol.apply(L_p, B)).abs().max()) < CHOL_TOL
+
+
+def test_chol_not_spd_gives_nan(spd):
+    A, _ = spd
+    A = A[:2].clone()
+    A[1, 10, 10] = -1.0
+    X = chol_cuda.solve_only(A, torch.ones(2, 75, 1, device=A.device))
+    assert torch.isfinite(X[0]).all() and torch.isnan(X[1]).any()
+
+
+def test_chol_wrappers_reject_what_the_kernels_do_not_take(spd):
+    A, _ = spd
+    B = torch.zeros(37, 75, 1, device=A.device)
+    for bad in ((A.double(), B.double()), (A[::2], B[::2]),
+                (A, torch.zeros(36, 75, 1, device=A.device)),
+                (A, torch.zeros(37, 75, 100, device=A.device)),
+                (A.transpose(-1, -2), B), (A, B.cpu())):
+        with pytest.raises(ValueError):
+            chol_cuda.solve_only(*bad)
+    with pytest.raises(ValueError):
+        chol_cuda.apply(A[..., :74], B)
