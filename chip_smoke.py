@@ -11,7 +11,8 @@ Phases, one line each with its seconds:
               each kernel's wrapper and its plain PyTorch version on them
               and on the JAX kernel tests' kind of input, checks the error
               against the JAX tests' tolerances, and times kernel, plain
-              version, bound and the nearest PyTorch call
+              version, bound and the nearest PyTorch call; K2 and K3 also
+              at the objects slice's shapes (R = 49, 79; C = 72, 108)
   4. slice    loads the trained UHC checkpoint iter_13000.p and evaluates
               it for 60 control steps on 24 seeded clips of 120 frames (one
               env per clip) through the kernels, with the launch counters
@@ -23,7 +24,9 @@ Phases, one line each with its seconds:
               8 control steps: 2 iterations of train_epoch (rollout, norm,
               GAE, PPO) through the LTDL kernels, launches counted as in 4;
               losses, rewards and states finite, the policy moved, and a
-              saved checkpoint reloads to bit-identical outputs
+              saved checkpoint reloads to bit-identical outputs; prints
+              the LTDL kernel ms per control step (launches x ms at 2048
+              envs, summed over K1-K3)
   7. dense    one iteration of the same training with the dense Cholesky
               configuration (kernel K4a), launches counted; then one
               control step of 4 envs on the card against the CPU float64
@@ -56,6 +59,9 @@ F32_FLOP_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 LTDL_ATOL = 1e-3              # tests/test_pallas_ltdl.py:48,60
 PGS_RTOL, PGS_ATOL = 2e-4, 2e-5   # tests/test_pallas_pgs.py:69
 CHOL_TOL = 5e-3               # tests/test_pallas_chol.py:22-47 (rtol = atol)
+# the objects slice's kernel shapes (ROADMAP queue 1 item 2)
+OBJ_SOLVE_WIDTHS = (49, 79)   # K2: 1 + 3 x 16 (compact_k), 1 + 3 x 26
+OBJ_PSOR_BLOCKS = (24, 36)    # K3: 72 and 108 rows
 SOLVE_RTOL = 1e-4             # K2, K4a on the substep's own systems, / max |x|
 PARITY_ATOL = 1e-3            # qpos/qvel after one control step, f32 vs f64
 T0 = time.perf_counter()
@@ -508,6 +514,16 @@ def main() -> None:
     if not rel2 < SOLVE_RTOL:
         fail(f"ltdl_solve on the substep's right-hand sides: relative err "
              f"{rel2:.3g} >= {SOLVE_RTOL}")
+    # the objects slice's widths: 1 + 3 x 16 (compacted) and 1 + 3 x 26
+    obj2 = []
+    for nr in OBJ_SOLVE_WIDTHS:
+        Bn = torch.randn((N_ENVS, nv, nr), generator=gen, device=device)
+        e = float((ltdl_cuda.solve(topo, Rf, Bn) - ltdl.solve(topo, Rf, Bn))
+                  .abs().max())
+        if not e < LTDL_ATOL:
+            fail(f"ltdl_solve[R={nr}] max abs err {e:.3g} >= {LTDL_ATOL}")
+        obj2.append(f"R={nr} err {e:.3g} "
+                    f"{cuda_ms(lambda: ltdl_cuda.solve(topo, Rf, Bn), 20):.4f} ms")
 
     # K3: PSOR. The tolerance gate runs on seeded SPD systems built as the
     # JAX kernel test builds them (tests/test_pallas_pgs.py), at the
@@ -548,12 +564,22 @@ def main() -> None:
     if not ek <= 2 * ep + PGS_ATOL:
         fail(f"pgs_solve on the substep's system: {ek:.3g} from float64, the "
              f"float32 plain version {ep:.3g}")
+    for kb in OBJ_PSOR_BLOCKS:
+        sys_k = [torch.as_tensor(x, device=device)
+                 for x in random_psor_system(N_ENVS, kb, seed=5)]
+        fk, fp = pgs_cuda.pgs_solve(*sys_k, iters), ct.psor_plain(*sys_k, iters)
+        if not bool(((fk - fp).abs() <= PGS_ATOL + PGS_RTOL * fp.abs()).all()):
+            fail(f"pgs_solve at C={3 * kb} outside rtol {PGS_RTOL} atol "
+                 f"{PGS_ATOL} (max abs err {float((fk - fp).abs().max()):.3g})")
+        obj2.append(f"pgs C={3 * kb} err {float((fk - fp).abs().max()):.3g} "
+                    f"{cuda_ms(lambda: pgs_cuda.pgs_solve(*sys_k, iters), 20):.4f} ms")
     say("kernels", f"N={N_ENVS}: factor err {err1:.3g} {k1_ms:.4f} ms | "
         f"solve err {err2:.3g} (substep rhs rel {rel2:.3g}) R=1 {k2[1]['ms']:.4f} ms R=55 "
         f"{k2[55]['ms']:.4f} ms | pgs err {err3:.3g} (substep system: kernel "
         f"{ek:.3g}, plain {ep:.3g} from float64, max |f| "
         f"{float(f_d.abs().max()):.3g}) {kernels[-1]['ms']:.4f} ms "
         f"({n_active:.0f} active blocks of {N_ENVS * K})", tp)
+    say("kernels", f"N={N_ENVS}, objects-slice shapes: " + " | ".join(obj2), tp)
 
     tp = time.perf_counter()
     dense_model = eng.build_model(spec, uhc_control_params(spec), device=device,
@@ -627,6 +653,12 @@ def main() -> None:
     for k in kernels:
         k["launches"] = tr["launches"].get(k["name"], 0)
     ltdl_ms = tr["ms_per_step"]
+    # launches x ms at N = 2048 over the kernels of the LTDL path, per
+    # control step of the training run
+    k_ms = sum(k["launches"] * k["ms"] for k in kernels
+               if k["name"].startswith(("ltdl_", "pgs_"))) / n
+    say("train", f"LTDL kernel time per control step at N={N_ENVS}: "
+        f"{k_ms:.3f} ms (sum of launches x ms over {n} control steps)", tp)
     del tr
 
     # 7. dense: the same training through K4a, and its parity ---------------

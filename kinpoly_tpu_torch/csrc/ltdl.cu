@@ -11,19 +11,42 @@
 // factor out) and does ~25k flops per env (51 Mflop): bytes bound it,
 // ~6 us at 3.35 TB/s. K2 with R = 55 right-hand sides moves 10.0 MB of
 // factor plus 2 x 33.8 MB of right-hand sides: ~23 us; with R = 1, ~3.4 us.
-// Both kernels copy whole packed rows, padding included, so they move
-// 1.84x the bytes K1 needs.
+// Neither reaches that: each env's solve is a chain of 2 x 1146 dependent
+// multiply-adds per column, so latency and shared-memory traffic bound a
+// kernel that gives each env a few threads.
 //
 // Design. The TPU kernels keep the env batch on the 128 lanes and run the
-// elimination as straight-line code. Here one warp owns one env and keeps
-// its packed rows (9 KB) in shared memory, loaded and stored with coalesced
-// 128-byte transactions from the engine's batch-leading layout, so no
-// transpose is needed. The elimination schedule (ancestor table, depth,
-// level order) comes from small int32 tables that every lane reads alike.
-// K1: for dof k the lanes hold L_s (s < depth <= 29 < 32) and update the
-// packed triangle of the ancestors in parallel, one ancestor row per step.
-// K2: the lanes take the right-hand-side columns, each column an
-// independent sequential solve in shared memory.
+// elimination as straight-line code. Here each env's rows are staged in
+// shared memory, loaded with coalesced transactions from the engine's
+// batch-leading layout, so no transpose is needed.
+// K1: one warp owns one env and its packed rows (9 KB). For dof k the lanes
+// hold L_s (s < depth <= 29 < 32) and update the packed triangle of the
+// ancestors in parallel, one ancestor row per step. It copies whole rows,
+// padding included (1.84x the live bytes).
+// K2: the dofs are in depth-first preorder, so a dof's subtree is a range
+// of indices after it, and both passes run over those ranges. Each block
+// derives the subtree ends and column offsets from the depth table. An
+// env's packed rows are copied once into shared memory, live slots only
+// (t <= depth, with cp.async: every copy in flight at once), and the
+// pivots are taken as reciprocals, which the pass multiplies by, as the TPU
+// kernel does.
+// With R > 1 columns, the rows are rearranged on chip into columns of L
+// (4.9 KB, 16-byte aligned) and one thread owns a pair of columns: all
+// columns run at once, 32 threads per env at R = 55, four envs per block,
+// dynamic shared memory up to 227 KB. Pass 1 is in pull form, each dof
+// summing over its subtree with independent loads (L four at a time);
+// pass 3 in push form, each final x_j updating its subtree. Shared-memory
+// traffic on x bounds these passes, so an even dof and its next dof, where
+// that is its child (nearly every pair in a humanoid's chains), run as one
+// unit: each row below the child is read (and in pass 3 written) once for
+// both columns of L.
+// With R = 1, one warp owns one env and its lanes go over a subtree,
+// reading L from the packed rows: pass 1 is one warp sum per dof and pass 3
+// one parallel update per dof, nv steps each instead of ~1146 sequential
+// ones.
+// Measured on an H100 (PERF.md): the IEEE division's branch to its
+// slow path, and its convergence barrier, cost more than the arithmetic in
+// such chains; the pass divides nothing.
 
 #include <cuda_runtime.h>
 
@@ -31,7 +54,12 @@ namespace {
 
 constexpr int kWarp = 32;
 constexpr int kMaxWarpsPerBlock = 4;
-constexpr size_t kSmemLimit = 48 * 1024;
+constexpr size_t kSmemLimit = 48 * 1024;   // K1's blocks
+constexpr size_t kMaxSmem = 232448;        // 227 KB, a block's most on sm_90
+constexpr int kSolveWarps = 4;             // K2, R = 1: envs per block
+constexpr int kColThreads = 128;           // K2, R > 1: threads per block
+constexpr int kMaxColsPerEnv = 256;        // K2, R > 1: threads per env at most
+                                           // (one per column pair)
 
 __global__ void ltdl_factor_kernel(const float* __restrict__ R,
                                    float* __restrict__ out,
@@ -83,53 +111,437 @@ __global__ void ltdl_factor_kernel(const float* __restrict__ R,
   for (int i = lane; i < sz; i += kWarp) dst[i] = r[i];
 }
 
-__global__ void ltdl_solve_kernel(const float* __restrict__ Rf,
-                                  const float* __restrict__ B,
-                                  float* __restrict__ X,
-                                  const int* __restrict__ anc,
-                                  const int* __restrict__ depth,
-                                  const int* __restrict__ order,
-                                  int n, int nv, int dp1, int nr) {
+// ---------------------------------------------------------------------------
+// K2: the solve. The dofs are in depth-first preorder (the wrapper checks
+// it), so the subtree of dof j is the index range (j, end[j]), end[j] being
+// the first k > j with depth[k] <= depth[j], and every dof's descendants
+// have larger indices than it. Column j of L below the diagonal is
+// L[k][depth j] for k in that range; the kernels stage it contiguously at
+// col[ptr[j] + k - j - 1], each column starting on a 16-byte boundary, and
+// the pivots at dg[k].
+
+// 4-byte asynchronous copy from device to shared memory: the copies of a
+// thread are all in flight at once, and cp_async_wait() waits for them.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ int round4(int x) { return (x + 3) & ~3; }
+
+// Barrier of the `count` threads of one env (named barrier id, 1..15), so
+// the envs of a block run apart.
+__device__ __forceinline__ void env_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+
+
+// Tables every block derives in shared memory from `depth` alone: the
+// threads find the subtree ends (four depths per step), then the first
+// warp turns the padded column lengths into offsets with a warp scan.
+__device__ void build_solve_tables(const int* __restrict__ depth, int nv,
+                                   int* s_depth, int* s_end, int* s_ptr) {
+  for (int k = threadIdx.x; k < nv; k += blockDim.x) s_depth[k] = depth[k];
+  __syncthreads();
+  for (int j = threadIdx.x; j < nv; j += blockDim.x) {
+    const int dj = s_depth[j];
+    int e = j + 1;
+    for (; e + 4 <= nv; e += 4) {
+      const int a0 = s_depth[e], a1 = s_depth[e + 1];
+      const int a2 = s_depth[e + 2], a3 = s_depth[e + 3];
+      if (a0 <= dj) break;
+      if (a1 <= dj) { e += 1; break; }
+      if (a2 <= dj) { e += 2; break; }
+      if (a3 <= dj) { e += 3; break; }
+    }
+    if (e + 4 > nv)
+      while (e < nv && s_depth[e] > dj) ++e;
+    s_end[j] = e;
+  }
+  __syncthreads();
+  if (threadIdx.x < kWarp) {
+    const int lane = threadIdx.x;
+    int carry = 0;
+    for (int j0 = 0; j0 < nv; j0 += kWarp) {
+      const int j = j0 + lane;
+      const int m = j < nv ? round4(s_end[j] - j - 1) : 0;
+      int incl = m;
+      for (int o = 1; o < kWarp; o *= 2) {
+        const int y = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += y;
+      }
+      if (j < nv) s_ptr[j] = carry + incl - m;
+      carry += __shfl_sync(0xffffffffu, incl, kWarp - 1);
+    }
+  }
+  __syncthreads();
+}
+
+// Copy one env's packed factor into shared memory: the live slots only
+// (t <= depth[k]), padding-only sectors are never fetched, and the reads of
+// a warp are contiguous.
+__device__ void copy_packed(const float* __restrict__ src, const int* s_depth,
+                            int nv, int dp1, int tid, int nthreads,
+                            float* tmp) {
+  for (int k = 0; k < nv; ++k) {
+    const int d = s_depth[k];
+    for (int t = tid; t <= d; t += nthreads)
+      cp_async4(tmp + k * dp1 + t, src + k * dp1 + t);
+  }
+}
+
+// Rearrange a shared copy of the packed rows into the column layout above,
+// with the reciprocal pivots 1 / D[k] in dg (the TPU kernel multiplies by
+// them too).
+__device__ void stage_columns(const float* tmp, const int* s_depth,
+                              const int* s_end, const int* s_ptr, int nv,
+                              int dp1, int tid, int nthreads, float* col,
+                              float* dg) {
+  for (int j = 0; j < nv; ++j) {
+    const int m = s_end[j] - j - 1;
+    const float* tj = tmp + (j + 1) * dp1 + s_depth[j];
+    float* cj = col + s_ptr[j];
+    for (int i = tid; i < m; i += nthreads) cj[i] = tj[i * dp1];
+  }
+  for (int k = tid; k < nv; k += nthreads) dg[k] = 1.0f / tmp[k * dp1 + s_depth[k]];
+}
+
+// The passes of the R > 1 kernel on one thread's pair of columns x2 (row
+// stride np float2s). Column j of L is lj[i] = L[j + 1 + i][depth j],
+// 16-byte aligned; rows are read four at a time.
+
+// y_j -= sum over i < m of lj[i] y_{j+1+i}
+__device__ __forceinline__ void pull_one(float2* x2, int np, int p, int j,
+                                         const float* lj, int m) {
+  const float4* l4 = reinterpret_cast<const float4*>(lj);
+  const float2* xr = x2 + (j + 1) * np + p;
+  float2 acc = x2[j * np + p];
+  int i = 0;
+  for (; i + 4 <= m; i += 4, xr += 4 * np) {
+    const float4 l = l4[i / 4];
+    const float2 y0 = xr[0], y1 = xr[np], y2 = xr[2 * np], y3 = xr[3 * np];
+    acc.x -= l.x * y0.x;
+    acc.y -= l.x * y0.y;
+    acc.x -= l.y * y1.x;
+    acc.y -= l.y * y1.y;
+    acc.x -= l.z * y2.x;
+    acc.y -= l.z * y2.y;
+    acc.x -= l.w * y3.x;
+    acc.y -= l.w * y3.y;
+  }
+  for (; i < m; ++i, xr += np) {
+    acc.x -= lj[i] * xr[0].x;
+    acc.y -= lj[i] * xr[0].y;
+  }
+  x2[j * np + p] = acc;
+}
+
+// Dofs a and b = a + 1, b a child of a; a's subtree has ma rows, b's mb.
+// One pass over b's subtree serves both sums: there L[k][depth a] is
+// la[k - a - 1], one float off b's alignment, so a rolling pair of
+// aligned loads provides it.
+__device__ __forceinline__ void pull_pair(float2* x2, int np, int p, int a,
+                                          const float* la, const float* lb,
+                                          int ma, int mb) {
+  const int b = a + 1;
+  const float4* la4 = reinterpret_cast<const float4*>(la);
+  const float4* lb4 = reinterpret_cast<const float4*>(lb);
+  const float2* xr = x2 + (b + 1) * np + p;
+  float2 acca = x2[a * np + p], accb = x2[b * np + p];
+  int i = 0;
+  float4 lo = la4[0];
+  for (; i + 4 <= mb; i += 4, xr += 4 * np) {
+    const float4 hi = la4[i / 4 + 1];
+    const float4 l = lb4[i / 4];
+    const float2 y0 = xr[0], y1 = xr[np], y2 = xr[2 * np], y3 = xr[3 * np];
+    accb.x -= l.x * y0.x;
+    accb.y -= l.x * y0.y;
+    acca.x -= lo.y * y0.x;
+    acca.y -= lo.y * y0.y;
+    accb.x -= l.y * y1.x;
+    accb.y -= l.y * y1.y;
+    acca.x -= lo.z * y1.x;
+    acca.y -= lo.z * y1.y;
+    accb.x -= l.z * y2.x;
+    accb.y -= l.z * y2.y;
+    acca.x -= lo.w * y2.x;
+    acca.y -= lo.w * y2.y;
+    accb.x -= l.w * y3.x;
+    accb.y -= l.w * y3.y;
+    acca.x -= hi.x * y3.x;
+    acca.y -= hi.x * y3.y;
+    lo = hi;
+  }
+  for (; i < mb; ++i, xr += np) {
+    accb.x -= lb[i] * xr[0].x;
+    accb.y -= lb[i] * xr[0].y;
+    acca.x -= la[i + 1] * xr[0].x;
+    acca.y -= la[i + 1] * xr[0].y;
+  }
+  x2[b * np + p] = accb;
+  // b itself, then the rest of a's subtree (its other children's)
+  acca.x -= la[0] * accb.x;
+  acca.y -= la[0] * accb.y;
+  for (int t = mb + 1; t < ma; ++t) {
+    const float2 y = x2[(a + 1 + t) * np + p];
+    acca.x -= la[t] * y.x;
+    acca.y -= la[t] * y.y;
+  }
+  x2[a * np + p] = acca;
+}
+
+// y_{j+1+i} -= lj[i] x_j for i < m; four rows are read before any is
+// written (they are distinct rows)
+__device__ __forceinline__ void push_one(float2* x2, int np, int p, int j,
+                                         const float* lj, int m) {
+  const float4* l4 = reinterpret_cast<const float4*>(lj);
+  float2* xr = x2 + (j + 1) * np + p;
+  const float2 xj = x2[j * np + p];
+  int i = 0;
+  for (; i + 4 <= m; i += 4, xr += 4 * np) {
+    const float4 l = l4[i / 4];
+    float2 y0 = xr[0], y1 = xr[np], y2 = xr[2 * np], y3 = xr[3 * np];
+    y0.x -= l.x * xj.x;
+    y0.y -= l.x * xj.y;
+    y1.x -= l.y * xj.x;
+    y1.y -= l.y * xj.y;
+    y2.x -= l.z * xj.x;
+    y2.y -= l.z * xj.y;
+    y3.x -= l.w * xj.x;
+    y3.y -= l.w * xj.y;
+    xr[0] = y0;
+    xr[np] = y1;
+    xr[2 * np] = y2;
+    xr[3 * np] = y3;
+  }
+  for (; i < m; ++i, xr += np) {
+    float2 y = xr[0];
+    y.x -= lj[i] * xj.x;
+    y.y -= lj[i] * xj.y;
+    xr[0] = y;
+  }
+}
+
+// The same units as pull_pair: x_b loses L[b][depth a] x_a, then one pass
+// over b's subtree takes both pushes, then x_a goes to the rest of a's.
+__device__ __forceinline__ void push_pair(float2* x2, int np, int p, int a,
+                                          const float* la, const float* lb,
+                                          int ma, int mb) {
+  const int b = a + 1;
+  const float4* la4 = reinterpret_cast<const float4*>(la);
+  const float4* lb4 = reinterpret_cast<const float4*>(lb);
+  const float2 xa = x2[a * np + p];
+  float2 xb = x2[b * np + p];
+  xb.x -= la[0] * xa.x;
+  xb.y -= la[0] * xa.y;
+  x2[b * np + p] = xb;
+  float2* xr = x2 + (b + 1) * np + p;
+  int i = 0;
+  float4 lo = la4[0];
+  for (; i + 4 <= mb; i += 4, xr += 4 * np) {
+    const float4 hi = la4[i / 4 + 1];
+    const float4 l = lb4[i / 4];
+    float2 y0 = xr[0], y1 = xr[np], y2 = xr[2 * np], y3 = xr[3 * np];
+    y0.x -= lo.y * xa.x;
+    y0.y -= lo.y * xa.y;
+    y0.x -= l.x * xb.x;
+    y0.y -= l.x * xb.y;
+    y1.x -= lo.z * xa.x;
+    y1.y -= lo.z * xa.y;
+    y1.x -= l.y * xb.x;
+    y1.y -= l.y * xb.y;
+    y2.x -= lo.w * xa.x;
+    y2.y -= lo.w * xa.y;
+    y2.x -= l.z * xb.x;
+    y2.y -= l.z * xb.y;
+    y3.x -= hi.x * xa.x;
+    y3.y -= hi.x * xa.y;
+    y3.x -= l.w * xb.x;
+    y3.y -= l.w * xb.y;
+    xr[0] = y0;
+    xr[np] = y1;
+    xr[2 * np] = y2;
+    xr[3 * np] = y3;
+    lo = hi;
+  }
+  for (; i < mb; ++i, xr += np) {
+    float2 y = xr[0];
+    y.x -= la[i + 1] * xa.x;
+    y.y -= la[i + 1] * xa.y;
+    y.x -= lb[i] * xb.x;
+    y.y -= lb[i] * xb.y;
+    xr[0] = y;
+  }
+  for (int t = mb + 1; t < ma; ++t) {
+    float2 y = x2[(a + 1 + t) * np + p];
+    y.x -= la[t] * xa.x;
+    y.y -= la[t] * xa.y;
+    x2[(a + 1 + t) * np + p] = y;
+  }
+}
+
+// R > 1: one thread per pair of right-hand-side columns (pairs >= tpe
+// apart go to one thread in turn), tpe threads per env, several envs per
+// block. The columns sit in shared memory at an even row stride xs, so a
+// pair is one 8-byte access; each column is solved by its own thread.
+__global__ void ltdl_solve_cols_kernel(const float* __restrict__ Rf,
+                                       const float* __restrict__ B,
+                                       float* __restrict__ X,
+                                       const int* __restrict__ depth,
+                                       int n, int nv, int dp1, int nr,
+                                       int tpe, int n_col_max) {
   extern __shared__ float smem[];
+  int* s_depth = reinterpret_cast<int*>(smem);
+  int* s_end = s_depth + nv;
+  int* s_ptr = s_end + nv;
+  build_solve_tables(depth, nv, s_depth, s_end, s_ptr);
+  const int xs = (nr + 1) & ~1;
+  const int np = xs / 2;
+  const int e = threadIdx.x / tpe;
+  const int c0 = threadIdx.x - e * tpe;
+  const int env = blockIdx.x * (blockDim.x / tpe) + e;
+  const int xsz = nv * (xs > dp1 ? xs : dp1);
+  float* col = smem + round4(3 * nv) + e * (n_col_max + round4(nv) + round4(xsz));
+  float* dg = col + n_col_max;
+  float* x = dg + round4(nv);
+  if (env >= n) return;  // only the env's own barriers follow
+  const float* b = B + static_cast<size_t>(env) * nv * nr;
+  // the packed rows pass through the right-hand-side region
+  copy_packed(Rf + static_cast<size_t>(env) * nv * dp1, s_depth, nv, dp1, c0,
+              tpe, x);
+  cp_async_wait();
+  env_sync(1 + e, tpe);
+  stage_columns(x, s_depth, s_end, s_ptr, nv, dp1, c0, tpe, col, dg);
+  env_sync(1 + e, tpe);
+  // each thread loads and solves its own pair of columns
+  for (int p = c0; p < np; p += tpe)
+    for (int k = 0; k < nv; ++k) {
+      cp_async4(x + k * xs + 2 * p, b + k * nr + 2 * p);
+      if (2 * p + 1 < nr) cp_async4(x + k * xs + 2 * p + 1, b + k * nr + 2 * p + 1);
+      else x[k * xs + 2 * p + 1] = 0.0f;  // padding column
+    }
+  cp_async_wait();
+  float* xo = X + static_cast<size_t>(env) * nv * nr;
+  float2* x2 = reinterpret_cast<float2*>(x);
+  for (int p = c0; p < np; p += tpe) {
+    // pass 1, L^T y = b in pull form, descending: y_j = b_j - sum over the
+    // subtree of L[k][depth j] y_k. An even dof j whose next dof is its
+    // child runs as one unit with it, so each row below the child is read
+    // once for both sums.
+    for (int j = nv - 1; j >= 0;) {
+      if (j % 2 == 1 && s_depth[j] > s_depth[j - 1]) {
+        pull_pair(x2, np, p, j - 1, col + s_ptr[j - 1], col + s_ptr[j],
+                  s_end[j - 1] - j, s_end[j] - j - 1);
+        j -= 2;
+      } else {
+        pull_one(x2, np, p, j, col + s_ptr[j], s_end[j] - j - 1);
+        j -= 1;
+      }
+    }
+    // pass 2: D^-1 (dg holds the reciprocals)
+    for (int k = 0; k < nv; ++k) {
+      float2 z = x2[k * np + p];
+      z.x *= dg[k];
+      z.y *= dg[k];
+      x2[k * np + p] = z;
+    }
+    // pass 3, L x = z in push form, ascending: once x_j is final (its
+    // ancestors have smaller indices), each dof k of its subtree loses
+    // L[k][depth j] x_j; the same units as pass 1
+    for (int j = 0; j < nv;) {
+      if (j % 2 == 0 && j + 1 < nv && s_depth[j + 1] > s_depth[j]) {
+        push_pair(x2, np, p, j, col + s_ptr[j], col + s_ptr[j + 1],
+                  s_end[j] - j - 1, s_end[j + 1] - j - 2);
+        j += 2;
+      } else {
+        push_one(x2, np, p, j, col + s_ptr[j], s_end[j] - j - 1);
+        j += 1;
+      }
+    }
+    for (int k = 0; k < nv; ++k) {
+      xo[k * nr + 2 * p] = x[k * xs + 2 * p];
+      if (2 * p + 1 < nr) xo[k * nr + 2 * p + 1] = x[k * xs + 2 * p + 1];
+    }
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = kWarp / 2; o > 0; o /= 2) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// R = 1: one warp per env, the lanes over a dof's subtree, reading L[k][t]
+// straight from the env's packed rows in shared memory. Pass 1 is one warp
+// sum per dof, pass 3 one parallel update per dof: nv steps each.
+__global__ void ltdl_solve_vec_kernel(const float* __restrict__ Rf,
+                                      const float* __restrict__ B,
+                                      float* __restrict__ X,
+                                      const int* __restrict__ depth,
+                                      int n, int nv, int dp1) {
+  extern __shared__ float smem[];
+  int* s_depth = reinterpret_cast<int*>(smem);
+  int* s_end = s_depth + nv;
+  int* s_ptr = s_end + nv;
+  build_solve_tables(depth, nv, s_depth, s_end, s_ptr);
   const int lane = threadIdx.x % kWarp;
   const int wib = threadIdx.x / kWarp;
   const int env = blockIdx.x * (blockDim.x / kWarp) + wib;
-  if (env >= n) return;
-  const int szf = nv * dp1;
-  const int szx = nv * nr;
-  float* rf = smem + wib * (szf + szx);
-  float* x = rf + szf;
-  const float* srcf = Rf + static_cast<size_t>(env) * szf;
-  const float* srcb = B + static_cast<size_t>(env) * szx;
-  for (int i = lane; i < szf; i += kWarp) rf[i] = srcf[i];
-  for (int i = lane; i < szx; i += kWarp) x[i] = srcb[i];
+  if (env >= n) return;  // only warp barriers follow
+  float* r = smem + round4(3 * nv) + wib * (round4(nv * dp1) + round4(2 * nv));
+  float* dg = r + round4(nv * dp1);
+  float* x = dg + nv;
+  copy_packed(Rf + static_cast<size_t>(env) * nv * dp1, s_depth, nv, dp1, lane,
+              kWarp, r);
+  const float* b = B + static_cast<size_t>(env) * nv;
+  for (int k = lane; k < nv; k += kWarp) cp_async4(x + k, b + k);
+  cp_async_wait();
   __syncwarp();
-
-  for (int c = lane; c < nr; c += kWarp) {
-    // pass 1: L^T y = b, deepest level first (x[k] is final when reached)
-    for (int i = 0; i < nv; ++i) {
-      const int k = order[i];
-      const int d = depth[k];
-      const float xk = x[k * nr + c];
-      for (int t = 0; t < d; ++t)
-        x[anc[k * dp1 + t] * nr + c] -= rf[k * dp1 + t] * xk;
-    }
-    // pass 2: D^-1
-    for (int k = 0; k < nv; ++k) x[k * nr + c] /= rf[k * dp1 + depth[k]];
-    // pass 3: L x = z, shallowest level first (ancestors are final)
-    for (int i = nv - 1; i >= 0; --i) {
-      const int k = order[i];
-      const int d = depth[k];
-      if (d == 0) continue;
-      float acc = rf[k * dp1] * x[anc[k * dp1] * nr + c];
-      for (int t = 1; t < d; ++t)
-        acc += rf[k * dp1 + t] * x[anc[k * dp1 + t] * nr + c];
-      x[k * nr + c] -= acc;
-    }
+  for (int k = lane; k < nv; k += kWarp) dg[k] = 1.0f / r[k * dp1 + s_depth[k]];
+  // pass 1, pull form: y_j -= sum over the subtree of L[k][depth j] y_k
+  for (int j = nv - 1; j >= 0; --j) {
+    const int m = s_end[j] - j - 1;
+    if (m == 0) continue;
+    const float* lj = r + (j + 1) * dp1 + s_depth[j];
+    float s = 0.0f;
+    for (int i = lane; i < m; i += kWarp) s += lj[i * dp1] * x[j + 1 + i];
+    s = warp_sum(s);
+    if (lane == 0) x[j] -= s;
+    __syncwarp();
   }
+  // pass 2: D^-1 (dg holds the reciprocals)
+  for (int k = lane; k < nv; k += kWarp) x[k] *= dg[k];
   __syncwarp();
-  float* dst = X + static_cast<size_t>(env) * szx;
-  for (int i = lane; i < szx; i += kWarp) dst[i] = x[i];
+  // pass 3, push form: each final x_j updates its subtree
+  for (int j = 0; j < nv; ++j) {
+    const int m = s_end[j] - j - 1;
+    if (m == 0) continue;
+    const float* lj = r + (j + 1) * dp1 + s_depth[j];
+    const float xj = x[j];
+    for (int i = lane; i < m; i += kWarp) x[j + 1 + i] -= lj[i * dp1] * xj;
+    __syncwarp();
+  }
+  float* xo = X + static_cast<size_t>(env) * nv;
+  for (int k = lane; k < nv; k += kWarp) xo[k] = x[k];
+}
+
+// The launcher cannot read `depth` (device memory), so it sizes the column
+// store for the most a preorder tree of this size can hold: depth[k] <=
+// min(k, dp1 - 1) slots in all, plus up to 3 floats of alignment for each
+// column, rounded to 16 bytes.
+int col_bound(int nv, int dp1) {
+  int m = 0;
+  for (int k = 0; k < nv; ++k) m += k < dp1 - 1 ? k : dp1 - 1;
+  return (m + 3 * nv + 3) & ~3;
+}
+
+void allow_large_smem(const void* fn) {
+  cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(kMaxSmem));
 }
 
 int warps_per_block(size_t bytes_per_warp) {
@@ -140,8 +552,10 @@ int warps_per_block(size_t bytes_per_warp) {
 }  // namespace
 
 // Each entry point launches on `stream` and returns cudaGetLastError()
-// (0 = launched). Sizes are checked by the Python wrapper: dp1 <= 32 and
-// the per-warp shared memory fits the 48 KB default.
+// (0 = launched). Sizes are checked by the Python wrapper: for K1,
+// dp1 <= 32 and one warp's shared memory within the 48 KB default; for K2,
+// dofs in depth-first preorder and one env's shared memory (the tables and
+// the column bound below included) within a block's 227 KB.
 extern "C" int ltdl_factor(const float* R, float* out, const int* anc,
                            const int* depth, const int* order, int n, int nv,
                            int dp1, float reg, void* stream) {
@@ -157,11 +571,43 @@ extern "C" int ltdl_factor(const float* R, float* out, const int* anc,
 extern "C" int ltdl_solve(const float* Rf, const float* B, float* X,
                           const int* anc, const int* depth, const int* order,
                           int n, int nv, int dp1, int nr, void* stream) {
-  const size_t per_warp = sizeof(float) * nv * (dp1 + nr);
-  const int w = warps_per_block(per_warp);
-  const int blocks = (n + w - 1) / w;
-  ltdl_solve_kernel<<<blocks, w * kWarp, w * per_warp,
-                      static_cast<cudaStream_t>(stream)>>>(
-      Rf, B, X, anc, depth, order, n, nv, dp1, nr);
+  // the preorder passes need neither the ancestor table nor the
+  // elimination order: the subtree ranges come from the depths
+  (void)anc;
+  (void)order;
+  const int ncm = col_bound(nv, dp1);
+  const size_t tables = sizeof(int) * ((3 * nv + 3) & ~3);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (nr == 1) {
+    static const bool once = (allow_large_smem(
+        reinterpret_cast<const void*>(ltdl_solve_vec_kernel)), true);
+    (void)once;
+    const size_t per_env =
+        sizeof(float) * (((2 * nv + 3) & ~3) + ((nv * dp1 + 3) & ~3));
+    int w = static_cast<int>((kMaxSmem - tables) / per_env);
+    if (w > kSolveWarps) w = kSolveWarps;
+    if (w < 1) return static_cast<int>(cudaErrorInvalidValue);
+    const int blocks = (n + w - 1) / w;
+    ltdl_solve_vec_kernel<<<blocks, w * kWarp, tables + w * per_env, st>>>(
+        Rf, B, X, depth, n, nv, dp1);
+  } else {
+    static const bool once = (allow_large_smem(
+        reinterpret_cast<const void*>(ltdl_solve_cols_kernel)), true);
+    (void)once;
+    const int np = (nr + 1) / 2;
+    int tpe = (np + kWarp - 1) / kWarp * kWarp;
+    if (tpe > kMaxColsPerEnv) tpe = kMaxColsPerEnv;
+    const size_t per_env =
+        sizeof(float) * (ncm + ((nv + 3) & ~3) +
+                         ((static_cast<size_t>(nv) * (2 * np > dp1 ? 2 * np : dp1) + 3) & ~3));
+    int e = kColThreads / tpe;
+    if (e < 1) e = 1;
+    const int fit = static_cast<int>((kMaxSmem - tables) / per_env);
+    if (e > fit) e = fit;
+    if (e < 1) return static_cast<int>(cudaErrorInvalidValue);
+    const int blocks = (n + e - 1) / e;
+    ltdl_solve_cols_kernel<<<blocks, e * tpe, tables + e * per_env, st>>>(
+        Rf, B, X, depth, n, nv, dp1, nr, tpe, ncm);
+  }
   return static_cast<int>(cudaGetLastError());
 }

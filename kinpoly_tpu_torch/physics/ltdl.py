@@ -40,6 +40,43 @@ class LTDLTopo(NamedTuple):
     valid: torch.Tensor      # (nv, Dmax+1) 1 where slot t <= depth[k]
     diag_onehot: torch.Tensor  # (nv, Dmax+1) 1 at slot depth[k]
     kernel_tables: tuple     # int32 (anc (nv*(Dmax+1)), depth (nv), order (nv))
+    preorder: bool           # dofs in depth-first preorder (kernel K2 needs it)
+
+
+def subtree_end(depth: np.ndarray) -> np.ndarray:
+    """end[j] = the first k > j with depth[k] <= depth[j] (nv if none). In
+    depth-first preorder the subtree of j is the index range (j, end[j]);
+    kernel K2 derives this table from ``depth`` in the same way."""
+    nv = len(depth)
+    end = np.empty(nv, dtype=np.int64)
+    for j in range(nv):
+        e = j + 1
+        while e < nv and depth[e] > depth[j]:
+            e += 1
+        end[j] = e
+    return end
+
+
+def column_offsets(depth: np.ndarray) -> np.ndarray:
+    """ptr[j]: where column j of L (L[k][depth j] for k in (j, end[j]))
+    starts in kernel K2's staged factor, each column padded to a multiple
+    of 4 floats (16 bytes); (nv + 1,), the last entry is the columns'
+    padded size."""
+    end = subtree_end(depth)
+    m = end - np.arange(len(depth)) - 1
+    return np.concatenate([[0], np.cumsum((m + 3) // 4 * 4)])
+
+
+def is_preorder(anc_idx: np.ndarray, depth: np.ndarray) -> bool:
+    """Whether the descendants of every dof j are exactly (j, end[j])."""
+    end = subtree_end(depth)
+    nv = len(depth)
+    for j in range(nv):
+        desc = [k for k in range(nv)
+                if depth[k] > depth[j] and anc_idx[k, depth[j]] == j]
+        if desc != list(range(j + 1, int(end[j]))):
+            return False
+    return True
 
 
 def build_topo(dof_parent: np.ndarray, dtype: torch.dtype, device) -> LTDLTopo:
@@ -70,7 +107,8 @@ def build_topo(dof_parent: np.ndarray, dtype: torch.dtype, device) -> LTDLTopo:
         valid=t((slots <= depth[:, None]).astype(np.float64)),
         diag_onehot=t((slots == depth[:, None]).astype(np.float64)),
         kernel_tables=(t(anc_idx.reshape(-1), torch.int32),
-                       t(depth, torch.int32), t(order, torch.int32)))
+                       t(depth, torch.int32), t(order, torch.int32)),
+        preorder=is_preorder(anc_idx, depth))
 
 
 def pack(topo: LTDLTopo, M: torch.Tensor) -> torch.Tensor:

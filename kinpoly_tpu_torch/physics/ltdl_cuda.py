@@ -15,7 +15,24 @@ import torch
 from kinpoly_tpu_torch import native
 from kinpoly_tpu_torch.physics import ltdl
 
-_SMEM_LIMIT = 48 * 1024
+_SMEM_LIMIT = 48 * 1024      # K1: one warp's rows within the default
+SMEM_MAX = 232448            # K2: a block's most on sm_90 (227 KB)
+
+
+def solve_smem_bytes(nv: int, dp1: int, nr: int) -> int:
+    """Shared memory of one env of kernel K2 at width ``nr``, each region
+    rounded to 16 bytes: the block's three int tables, then
+    - R = 1: the packed rows, the pivots and the right-hand side;
+    - R > 1: the columns of L, sized for the most a preorder tree can hold
+      (depth[k] <= min(k, Dmax), plus 3 floats of alignment per column,
+      since the launcher cannot read the depth table), the pivots, and the
+      right-hand sides at an even row stride (a region that first holds the
+      packed rows, so at least nv * (Dmax + 1) floats)."""
+    r4 = lambda x: (x + 3) // 4 * 4
+    if nr == 1:
+        return 4 * (r4(3 * nv) + r4(nv * dp1) + r4(2 * nv))
+    n_col = r4(sum(min(k, dp1 - 1) for k in range(nv)) + 3 * nv)
+    return 4 * (r4(3 * nv) + n_col + r4(nv) + r4(nv * max(nr + nr % 2, dp1)))
 
 
 def _check(name: str, x: torch.Tensor, shape_tail: tuple) -> None:
@@ -70,7 +87,10 @@ def solve(topo: ltdl.LTDLTopo, Rf: torch.Tensor, B: torch.Tensor) -> torch.Tenso
     if B.shape[:-2] != Rf.shape[:-2] or B.device != Rf.device:
         raise ValueError(f"ltdl_solve: factor {tuple(Rf.shape)} on "
                          f"{Rf.device} vs rhs {tuple(B.shape)} on {B.device}")
-    if 4 * nv * (dp1 + nr) > _SMEM_LIMIT:
+    if not topo.preorder:
+        raise ValueError("ltdl_solve: the kernel needs the dofs in "
+                         "depth-first preorder")
+    if nr < 1 or solve_smem_bytes(nv, dp1, nr) > SMEM_MAX:
         raise ValueError(f"ltdl_solve: {nr} right-hand sides exceed the "
                          f"kernel's shared memory")
     anc, depth, order = _tables(topo, B.device)

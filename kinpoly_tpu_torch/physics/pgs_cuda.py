@@ -14,7 +14,17 @@ import torch
 from kinpoly_tpu_torch import native
 from kinpoly_tpu_torch.physics import contact
 
-_SMEM_LIMIT = 48 * 1024
+SMEM_MAX = 232448            # a block's most on sm_90 (227 KB)
+MAX_ROWS = 256               # at most 8 rows of A f per lane
+
+
+def smem_bytes(C: int, K: int) -> int:
+    """Shared memory of one warp: 32 / G envs (G = 16 lanes per env up to
+    128 rows, 32 beyond), each with A at an odd row stride
+    (rounded to 16 bytes) and a 24-float record per block (rhs, R, Dinv,
+    mu, active, f)."""
+    envs = 2 if C <= 128 else 1
+    return 4 * envs * ((C * (C | 1) + 3) // 4 * 4 + 24 * K)
 
 
 def pgs_solve(A: torch.Tensor, rhs: torch.Tensor, Dinv: torch.Tensor,
@@ -42,7 +52,7 @@ def pgs_solve(A: torch.Tensor, rhs: torch.Tensor, Dinv: torch.Tensor,
             raise ValueError(f"pgs_solve: {name} is not contiguous")
     if C != 3 * K:
         raise ValueError(f"pgs_solve: {C} rows for {K} blocks")
-    if 4 * (C * C + C) > _SMEM_LIMIT:
+    if C > MAX_ROWS or smem_bytes(C, K) > SMEM_MAX:
         raise ValueError(f"pgs_solve: {C} rows exceed the kernel's shared memory")
     f = torch.empty_like(rhs)
     n = rhs.numel() // C

@@ -1,0 +1,254 @@
+"""The order of operations of the CUDA kernels K2 (LTDL solve) and K3
+(block PSOR), emulated in PyTorch on the CPU.
+
+The kernels run only on the card, where ``chip_smoke.py`` and
+``tests/test_torch_kernels_cuda.py`` hold them to their plain versions.
+Here the emulations check what the kernels compute differently from the
+plain versions: K3 keeps v = A f incrementally, starting each sweep from
+A f summed afresh during the sweep before, and K2 runs its passes over the
+subtree ranges of a depth-first preorder (for R > 1 in parent-child units),
+from a staged column layout that it derives from the depth table.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kinpoly_tpu.physics.pallas_pgs import pgs_solve_pallas
+from kinpoly_tpu_torch.anim import spec as sp
+from kinpoly_tpu_torch.physics import contact as ct
+from kinpoly_tpu_torch.physics import dynamics as dyn
+from kinpoly_tpu_torch.physics import ltdl
+
+PGS_RTOL, PGS_ATOL = 2e-4, 2e-5   # as tests/test_pallas_pgs.py:69
+SOLVE_RTOL = 1e-10                # float64, relative to max |x|
+
+
+# --- K3 ---------------------------------------------------------------------
+
+def pgs_kernel_order(A, rhs, Dinv, R, mu, active, iters):
+    """K3's order: each block's residual from v (not from a fresh dot
+    product), then v += A[:, 3k:3k+3] (f_new - f_old); beside it, vn +=
+    A[:, 3k:3k+3] f_new sums A f afresh from the sweep's final forces, and
+    the next sweep starts from v = vn (v = 0 before the first)."""
+    K = mu.shape[-1]
+    act = active.to(rhs.dtype)
+    f = torch.zeros_like(rhs)
+    v = torch.zeros_like(rhs)
+    for _ in range(iters):
+        vn = torch.zeros_like(rhs)
+        for k in range(K):
+            s = slice(3 * k, 3 * k + 3)
+            fk = f[..., s].clone()
+            q = rhs[..., s] - v[..., s] - R[..., s] * fk
+            g = fk + torch.einsum("...ij,...j->...i", Dinv[..., k, :, :], q)
+            fn = torch.clamp(g[..., 0], min=0.0)
+            tn = torch.sqrt(g[..., 1] ** 2 + g[..., 2] ** 2 + 1e-24)
+            scale = torch.clamp(mu[..., k] * fn / tn, max=1.0)
+            new = torch.stack([fn, g[..., 1] * scale, g[..., 2] * scale], -1)
+            new = new * act[..., k, None]
+            d = new - fk
+            cols = A[..., :, 3 * k:3 * k + 3]
+            v = v + (cols[..., 0] * d[..., 0:1] + cols[..., 1] * d[..., 1:2]
+                     + cols[..., 2] * d[..., 2:3])
+            vn = vn + (cols[..., 0] * new[..., 0:1] + cols[..., 1]
+                       * new[..., 1:2] + cols[..., 2] * new[..., 2:3])
+            f[..., s] = new
+        v = vn
+    return f
+
+
+def psor_system(seed: int, n: int, k: int, log_scale: float = 0.0):
+    """The SPD systems of tests/test_pallas_pgs.py (A = J J^T + 0.5 I, the
+    engine's regularisation, ~30% inactive blocks), with the main path's
+    12 floor blocks (mu = 1) before the frictionless ones; rows and columns
+    scaled by exp(U(-log_scale, log_scale)) for an ill-conditioned A.
+    float64 numpy, bool active."""
+    rng = np.random.RandomState(seed)
+    c = 3 * k
+    J = rng.randn(n, c, 40)
+    A = J @ np.swapaxes(J, -1, -2) + np.eye(c) * 0.5
+    rhs = rng.randn(n, c)
+    S = np.exp(rng.uniform(-log_scale, log_scale, (n, c)))
+    A = S[:, :, None] * A * S[:, None, :]
+    rhs = S * rhs
+    d = np.repeat(rng.uniform(0.85, 0.95, (n, k)), 3, -1)
+    active = rng.rand(n, k) > 0.3
+    R = (1 - d) / d * np.diagonal(A, axis1=-2, axis2=-1)
+    R = np.where(np.repeat(active, 3, -1), R, 1e8)
+    A3 = A.reshape(n, k, 3, k, 3)
+    D = np.stack([A3[:, i, :, i, :] for i in range(k)], axis=1)
+    D = D + R.reshape(n, k, 3)[..., None] * np.eye(3) + 1e-9 * np.eye(3)
+    mu = np.broadcast_to(np.where(np.arange(k) < 12, 1.0, 0.0), (n, k)).copy()
+    return A, rhs, np.linalg.inv(D), R, mu, active
+
+
+def _f32(system):
+    return [torch.tensor(x, dtype=torch.float32) if x.dtype != bool
+            else torch.tensor(x) for x in system]
+
+
+@pytest.mark.parametrize("k,iters", [(6, 12), (18, 20)])
+def test_pgs_kernel_order_matches_pallas(k, iters):
+    system = psor_system(0, 5, k)
+    ref = np.asarray(pgs_solve_pallas(
+        *(jnp.asarray(x.astype(np.float32) if x.dtype != bool else x)
+          for x in system), iters=iters, interpret=True))
+    out = pgs_kernel_order(*_f32(system), iters).numpy()
+    assert np.abs(out).max() > 1e-3            # the system has live forces
+    np.testing.assert_allclose(out, ref, rtol=PGS_RTOL, atol=PGS_ATOL)
+
+
+@pytest.mark.parametrize("k", [18, 24, 36])
+def test_pgs_kernel_order_matches_plain(k):
+    """At the main path's 18 blocks and the objects slice's 24 (compacted)
+    and 36 blocks."""
+    args = _f32(psor_system(1, 6, k))
+    np.testing.assert_allclose(pgs_kernel_order(*args, 20).numpy(),
+                               ct.psor_plain(*args, 20).numpy(),
+                               rtol=PGS_RTOL, atol=PGS_ATOL)
+
+
+@pytest.mark.parametrize("seed", [2, 3])
+def test_pgs_kernel_order_drift_bounded_on_ill_conditioned_system(seed):
+    """Row scales up to e^3 either way: the incremental v, summed afresh for
+    every sweep, stays within twice the plain float32 version's distance from
+    the float64 solution."""
+    system = psor_system(seed, 40, 18, log_scale=3.0)
+    f64 = ct.psor_plain(*(torch.tensor(x) for x in system), 20)
+    args = _f32(system)
+    e_kernel = float((pgs_kernel_order(*args, 20).double() - f64).abs().max())
+    e_plain = float((ct.psor_plain(*args, 20).double() - f64).abs().max())
+    assert float(f64.abs().max()) > 1e-3
+    assert e_kernel <= 2 * e_plain, (e_kernel, e_plain)
+
+
+# --- K2 ---------------------------------------------------------------------
+
+def stage_columns(depth, anc_idx, Rf):
+    """K2's staging: the live slots of each packed row go to col[ptr[j] +
+    k - j - 1] (L[k][t], j = anc(k)[t]) or to dg[k] (the pivot)."""
+    nv = len(depth)
+    ptr = ltdl.column_offsets(depth)
+    col = Rf.new_zeros(Rf.shape[:-2] + (int(ptr[-1]),))
+    dg = Rf.new_zeros(Rf.shape[:-2] + (nv,))
+    for k in range(nv):
+        for t in range(int(depth[k]) + 1):
+            if t < depth[k]:
+                j = int(anc_idx[k, t])
+                col[..., ptr[j] + k - j - 1] = Rf[..., k, t]
+            else:
+                dg[..., k] = Rf[..., k, t]
+    return col, dg
+
+
+def solve_kernel_order(topo, Rf, B):
+    """K2's passes: pass 1 pulls each dof's subtree (descending index),
+    pass 2 multiplies by the reciprocal pivots, pass 3 pushes each final
+    x_j into its subtree (ascending index). With R > 1 an even dof a whose
+    next dof b = a + 1 is its child forms one unit with it: one sweep over
+    b's subtree serves both columns, then b's own term, then the rest of
+    a's subtree."""
+    depth, nv = topo.depth, topo.nv
+    paired = B.shape[-1] > 1
+    end = ltdl.subtree_end(depth)
+    ptr = ltdl.column_offsets(depth)
+    col, dg = stage_columns(depth, topo.anc_idx, Rf)
+    L = lambda j, lo, hi: col[..., ptr[j] + lo:ptr[j] + hi]   # rows j+1+lo ..
+    pair = lambda a: paired and a % 2 == 0 and a + 1 < nv and depth[a + 1] > depth[a]
+    dot = lambda l, rows: torch.einsum("...i,...ir->...r", l, rows)
+    x = B.clone()
+    j = nv - 1
+    while j >= 0:
+        if j % 2 == 1 and pair(j - 1):
+            a, b = j - 1, j
+            ma, mb = int(end[a]) - a - 1, int(end[b]) - b - 1
+            sub = x[..., b + 1:b + 1 + mb, :]
+            x[..., b, :] -= dot(L(b, 0, mb), sub)
+            acc = x[..., a, :] - dot(L(a, 1, mb + 1), sub)
+            acc = acc - L(a, 0, 1) * x[..., b, :]
+            x[..., a, :] = acc - dot(L(a, mb + 1, ma), x[..., a + mb + 2:a + 1 + ma, :])
+            j -= 2
+        else:
+            m = int(end[j]) - j - 1
+            x[..., j, :] -= dot(L(j, 0, m), x[..., j + 1:j + 1 + m, :])
+            j -= 1
+    x = x * (1.0 / dg)[..., None]
+    j = 0
+    while j < nv:
+        if pair(j):
+            a, b = j, j + 1
+            ma, mb = int(end[a]) - a - 1, int(end[b]) - b - 1
+            x[..., b, :] -= L(a, 0, 1) * x[..., a, :]
+            x[..., b + 1:b + 1 + mb, :] -= (L(a, 1, mb + 1)[..., None] * x[..., a:a + 1, :]
+                                          + L(b, 0, mb)[..., None] * x[..., b:b + 1, :])
+            x[..., a + mb + 2:a + 1 + ma, :] -= L(a, mb + 1, ma)[..., None] * x[..., a:a + 1, :]
+            j += 2
+        else:
+            m = int(end[j]) - j - 1
+            x[..., j + 1:j + 1 + m, :] -= L(j, 0, m)[..., None] * x[..., j:j + 1, :]
+            j += 1
+    return x
+
+
+@pytest.fixture(scope="module")
+def humanoid():
+    spec = sp.synthetic_spec(0)
+    st = sp.spec_tensors(spec, torch.float64, "cpu")
+    tables = dyn.build_tables(spec, torch.float64, "cpu")
+    topo = ltdl.build_topo(tables.dof_parent, torch.float64, "cpu")
+    return spec, st, tables, topo
+
+
+@pytest.mark.parametrize("nr", [1, 49, 55, 79])
+def test_solve_kernel_order_matches_plain(humanoid, nr):
+    spec, st, tables, topo = humanoid
+    rng = np.random.RandomState(20 + nr)
+    q0, _ = sp.standing_pose(spec)
+    qpos = np.repeat(q0[None], 3, axis=0)
+    qpos[:, 7:] += rng.uniform(-0.6, 0.6, (3, 69))
+    ks = dyn.kin_state(st, torch.tensor(qpos))
+    R = ltdl.crba_packed(st, tables, topo, ks)
+    R = ltdl.add_diag(topo, R, torch.tensor(rng.uniform(0, 100, (3, 75))
+                                            * spec.timestep))
+    Rf = ltdl.factor(topo, R)
+    B = torch.tensor(rng.normal(size=(3, 75, nr)))
+    ref = ltdl.solve(topo, Rf, B)
+    out = solve_kernel_order(topo, Rf, B)
+    assert float((out - ref).abs().max()) <= SOLVE_RTOL * float(ref.abs().max())
+
+
+# --- topology tables ----------------------------------------------------------
+
+def test_subtree_tables_match_descendants(humanoid):
+    """The kernel's subtree ends and column offsets against the descendant
+    sets read off the ancestor table."""
+    topo = humanoid[3]
+    anc, depth, nv = topo.anc_idx, topo.depth, topo.nv
+    desc = [[k for k in range(nv) if depth[k] > depth[j] and anc[k, depth[j]] == j]
+            for j in range(nv)]
+    end = ltdl.subtree_end(depth)
+    for j in range(nv):
+        assert desc[j] == list(range(j + 1, int(end[j])))
+    ptr = ltdl.column_offsets(depth)
+    np.testing.assert_array_equal(ptr, np.concatenate(
+        [[0], np.cumsum([-(-len(d) // 4) * 4 for d in desc])]))
+    assert ptr[-1] - depth.sum() < 4 * nv and depth.sum() == 1146
+    assert topo.preorder
+    # every live slot of the packed rows lands on its own staged place,
+    # inside its column
+    slots = [(ptr[anc[k, t]] + k - anc[k, t] - 1, anc[k, t])
+             for k in range(nv) for t in range(depth[k])]
+    assert len({p for p, _ in slots}) == len(slots) == 1146
+    assert all(ptr[j] <= p < ptr[j] + len(desc[j]) for p, j in slots)
+
+
+def test_preorder_flag_rejects_other_orders():
+    # a chain 0-1-2 with a second child 3 of 0: preorder; swapping the
+    # children's order to 0, 3, 1, 2 with 3 a child of 1 is not
+    pre = ltdl.build_topo(np.array([-1, 0, 1, 0]), torch.float64, "cpu")
+    assert pre.preorder
+    np.testing.assert_array_equal(ltdl.subtree_end(pre.depth), [4, 3, 3, 4])
+    post = ltdl.build_topo(np.array([-1, 0, 0, 1]), torch.float64, "cpu")
+    assert not post.preorder

@@ -92,6 +92,88 @@ def test_pgs_kernel(cuda):
                                rtol=PGS_RTOL, atol=PGS_ATOL)
 
 
+@pytest.mark.parametrize("n", [37, 1])
+@pytest.mark.parametrize("nr", [1, 49, 55, 79])
+def test_solve_kernel_widths(packed, nr, n):
+    """The main path's widths (1, 55) and the objects slice's (49 with
+    compaction, 79 without), on env counts that fill no block evenly."""
+    topo, R, _ = packed
+    rng = np.random.RandomState(100 + nr)
+    Rf = ltdl.factor(topo, R[:n].contiguous())
+    B = torch.tensor(rng.normal(size=(n, 75, nr)), dtype=torch.float32,
+                     device=R.device)
+    key = f"ltdl_solve[R={nr}]"
+    before = native.LAUNCHES[key]
+    X = ltdl_cuda.solve(topo, Rf, B)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES[key] == before + 1
+    assert float((X - ltdl.solve(topo, Rf, B)).abs().max()) < LTDL_ATOL
+
+
+def _psor_args(n, k, seed, device):
+    rng = np.random.RandomState(seed)
+    c = 3 * k
+    J = rng.randn(n, c, 40)
+    A = J @ np.swapaxes(J, -1, -2) + np.eye(c) * 0.5
+    d = np.repeat(rng.uniform(0.85, 0.95, (n, k)), 3, -1)
+    active = rng.rand(n, k) > 0.3
+    Rr = np.where(np.repeat(active, 3, -1),
+                  (1 - d) / d * np.diagonal(A, axis1=-2, axis2=-1), 1e8)
+    A3 = A.reshape(n, k, 3, k, 3)
+    D = np.stack([A3[:, i, :, i, :] for i in range(k)], axis=1)
+    D = D + Rr.reshape(n, k, 3)[..., None] * np.eye(3) + 1e-9 * np.eye(3)
+    mu = np.broadcast_to(np.where(np.arange(k) < 12, 1.0, 0.0), (n, k))
+    t = lambda x: torch.tensor(x, dtype=torch.float32, device=device)
+    return [t(A), t(rng.randn(n, c)), t(np.linalg.inv(D)), t(Rr), t(mu),
+            torch.tensor(active, device=device)]
+
+
+@pytest.mark.parametrize("n", [37, 1])
+@pytest.mark.parametrize("k", [18, 24, 36])
+def test_pgs_kernel_sizes(cuda, k, n):
+    """C = 54 (main path), 72 and 108 rows (objects slice, with and
+    without compaction)."""
+    args = _psor_args(n, k, 10 + k, cuda)
+    before = native.LAUNCHES["pgs_solve"]
+    f = pgs_cuda.pgs_solve(*args, iters=20)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["pgs_solve"] == before + 1
+    ref = ct.psor_plain(*args, iters=20)
+    assert float(ref.abs().max()) > 1e-3
+    np.testing.assert_allclose(f.cpu().numpy(), ref.cpu().numpy(),
+                               rtol=PGS_RTOL, atol=PGS_ATOL)
+
+
+def test_kernels_at_and_past_their_shared_memory_limits(packed, cuda):
+    """K2 takes 744 right-hand sides of the 75-dof tree and refuses 745;
+    K3 takes 79 blocks (237 rows) and refuses 80: one env's shared memory
+    against a block's 227 KB."""
+    topo, R, rng = packed
+    Rf = ltdl.factor(topo, R[:3].contiguous())
+    B = torch.tensor(rng.normal(size=(3, 75, 744)), dtype=torch.float32,
+                     device=cuda)
+    X = ltdl_cuda.solve(topo, Rf, B)
+    torch.cuda.synchronize()
+    assert float((X - ltdl.solve(topo, Rf, B)).abs().max()) < LTDL_ATOL
+    with pytest.raises(ValueError):
+        ltdl_cuda.solve(topo, Rf, torch.zeros(3, 75, 745, device=cuda))
+    args = _psor_args(2, 79, 7, cuda)
+    f = pgs_cuda.pgs_solve(*args, iters=20)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(f.cpu().numpy(),
+                               ct.psor_plain(*args, iters=20).cpu().numpy(),
+                               rtol=PGS_RTOL, atol=PGS_ATOL)
+    with pytest.raises(ValueError):
+        pgs_cuda.pgs_solve(*_psor_args(2, 80, 7, cuda), iters=20)
+
+
+def test_solve_refuses_a_tree_out_of_preorder(cuda):
+    topo = ltdl.build_topo(np.array([-1, 0, 0, 1]), torch.float32, cuda)
+    Rf = torch.ones(2, 4, topo.dmax + 1, device=cuda)
+    with pytest.raises(ValueError):
+        ltdl_cuda.solve(topo, Rf, torch.ones(2, 4, 3, device=cuda))
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(packed):
     topo, R, _ = packed
     with pytest.raises(ValueError):
