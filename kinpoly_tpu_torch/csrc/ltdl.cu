@@ -19,10 +19,31 @@
 // elimination as straight-line code. Here each env's rows are staged in
 // shared memory, loaded with coalesced transactions from the engine's
 // batch-leading layout, so no transpose is needed.
-// K1: one warp owns one env and its packed rows (9 KB). For dof k the lanes
-// hold L_s (s < depth <= 29 < 32) and update the packed triangle of the
-// ancestors in parallel, one ancestor row per step. It copies whole rows,
-// padding included (1.84x the live bytes).
+// K1: one warp owns one env, four envs per block, one wave of ~16 warps
+// per SM at N = 2048. The dofs must be in depth-first preorder; they are
+// eliminated in descending index order, and lane t keeps in registers the
+// pending packed row of the current dof's ancestor at depth t (a path
+// stack: from one dof to the next, the lanes of the shared ancestors keep
+// their rows and the rest load input rows from shared memory, ~5 times per
+// env on a humanoid, once per leaf). Eliminating dof j at depth d, lane d
+// has j's finished row: it floors the pivot at reg * max(|M_jj|, 1) of
+// the INPUT diagonal and publishes the row to a shared buffer; every lane
+// takes one reciprocal (no IEEE division) and lane t < d subtracts
+// L_t * row[s] from its own row, four slots per 16-byte broadcast read: a
+// dof's d(d+1)/2 updates are d independent FMAs per lane, with no
+// read-modify-write of shared memory. Between two row loads the dofs form
+// a chain (each the parent of the one before): one straight run of code
+// entered at its first depth, every slot index a constant, so a dof costs
+// a few dozen instructions plus d FMAs and no table loads. The block's
+// rows come in and go out in single coalesced sweeps of 16-byte copies.
+// What bounds it (measured, PERF.md): the warps' chains of ~75 dofs
+// (publish, warp barrier, broadcast read, reciprocal, FMAs) contend for
+// the instruction throughput of the SMSPs, ~4 warps each: at a quarter of
+// the envs the kernel takes about half as long, and two envs per warp
+// (more independent work per warp) ran slower. The two sweeps, which
+// every block of the one wave makes at once, do not overlap the
+// elimination. Disjoint subtrees are not run at once, for the same reason:
+// the SMSPs have no idle cycles to give them.
 // K2: the dofs are in depth-first preorder, so a dof's subtree is a range
 // of indices after it, and both passes run over those ranges. Each block
 // derives the subtree ends and column offsets from the depth table. An
@@ -53,63 +74,11 @@
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kMaxWarpsPerBlock = 4;
-constexpr size_t kSmemLimit = 48 * 1024;   // K1's blocks
 constexpr size_t kMaxSmem = 232448;        // 227 KB, a block's most on sm_90
 constexpr int kSolveWarps = 4;             // K2, R = 1: envs per block
 constexpr int kColThreads = 128;           // K2, R > 1: threads per block
 constexpr int kMaxColsPerEnv = 256;        // K2, R > 1: threads per env at most
                                            // (one per column pair)
-
-__global__ void ltdl_factor_kernel(const float* __restrict__ R,
-                                   float* __restrict__ out,
-                                   const int* __restrict__ anc,
-                                   const int* __restrict__ depth,
-                                   const int* __restrict__ order,
-                                   int n, int nv, int dp1, float reg) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x % kWarp;
-  const int wib = threadIdx.x / kWarp;
-  const int env = blockIdx.x * (blockDim.x / kWarp) + wib;
-  if (env >= n) return;  // a whole warp leaves together
-  const int sz = nv * dp1;
-  float* r = smem + wib * sz;
-  const float* src = R + static_cast<size_t>(env) * sz;
-  for (int i = lane; i < sz; i += kWarp) r[i] = src[i];
-  __syncwarp();
-
-  for (int i = 0; i < nv; ++i) {
-    const int k = order[i];
-    const int d = depth[k];
-    if (d == 0) continue;
-    float* rk = r + k * dp1;
-    // pivot floor from the INPUT diagonal, as the TPU kernel does
-    const float dmin = reg * fmaxf(fabsf(src[k * dp1 + d]), 1.0f);
-    const float Dk = fmaxf(rk[d], dmin);
-    const float Ls = lane < d ? rk[lane] / Dk : 0.0f;
-    __syncwarp();
-    if (lane < d) rk[lane] = Ls;
-    if (lane == 0) rk[d] = Dk;
-    // ancestor a_t (depth t) loses (L_t D_k) L_s at slots s <= t; distinct
-    // t are distinct rows, so the lanes never write one address twice
-    for (int t = 0; t < d; ++t) {
-      const float coef = __shfl_sync(0xffffffffu, Ls, t) * Dk;
-      const int a = anc[k * dp1 + t];
-      if (lane <= t) r[a * dp1 + lane] -= coef * Ls;
-    }
-    __syncwarp();
-  }
-  // floor the pivots the elimination never divided by (depth 0)
-  for (int k = lane; k < nv; k += kWarp) {
-    if (depth[k] == 0) {
-      const float dmin = reg * fmaxf(fabsf(src[k * dp1]), 1.0f);
-      r[k * dp1] = fmaxf(r[k * dp1], dmin);
-    }
-  }
-  __syncwarp();
-  float* dst = out + static_cast<size_t>(env) * sz;
-  for (int i = lane; i < sz; i += kWarp) dst[i] = r[i];
-}
 
 // ---------------------------------------------------------------------------
 // K2: the solve. The dofs are in depth-first preorder (the wrapper checks
@@ -529,6 +498,167 @@ __global__ void ltdl_solve_vec_kernel(const float* __restrict__ Rf,
   for (int k = lane; k < nv; k += kWarp) xo[k] = x[k];
 }
 
+// ---------------------------------------------------------------------------
+// K1: the factor. The dofs are in depth-first preorder (the wrapper checks
+// it) and are eliminated in descending index order, so a dof's subtree is
+// done before it. Lane t of an env's warp holds in registers acc, the
+// pending packed row of the current dof's ancestor at depth t (slots
+// s <= t; the slots above are scratch that is never read), and dminl, the
+// pivot floor reg * max(|M_kk|, 1) from that row's INPUT diagonal. In
+// preorder every ancestor of dof j + 1 above its own depth is an ancestor
+// of j too, so going from j + 1 to j keeps lanes t < lo = min(depth[j + 1],
+// depth[j] + 1), and lanes lo .. depth[j] load the input rows of j's new
+// path from shared memory. Between two such loads the dofs form a chain,
+// each the parent of the one before, at depths d, d - 1, ...: one straight
+// run of code, entered at depth d, with every slot index a compile-time
+// constant.
+
+// 1 / x for a pivot x: the reciprocal estimate and one Newton step (within
+// an ulp of 1 / x), without the IEEE division's range check and its branch
+// to the slow path. The pivots are floored at reg * max(|M_kk|, 1) >= reg
+// before they are inverted, so x is never zero, denormal or negative.
+__device__ __forceinline__ float rcp_pivot(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return fmaf(r, fmaf(-x, r, 1.0f), r);
+}
+
+// 16-byte asynchronous copy from device to shared memory (both aligned).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+constexpr int kFactorWarps = 4;  // envs per block: 512 blocks at N = 2048,
+                                 // one wave of ~16 warps per SM
+
+// Eliminate the dof j at depth D, whose finished row lane D holds: lane D
+// floors its pivot and publishes the row through b (16-byte stores), every
+// lane takes its L_t = row[t] / pivot, lanes t < D subtract L_t row[s] for
+// s < D from their rows (16-byte broadcast reads, D independent FMAs), and
+// L and the pivot overwrite the input row of j in shared memory (mj): no
+// later dof reads it, as the rows loaded later are ancestors'.
+template <int D>
+__device__ __forceinline__ void eliminate(float (&acc)[kWarp], float dminl,
+                                          float* b, float* mj, int lane) {
+  constexpr int kPub = (D + 4) / 4;   // float4s holding slots 0..D
+  constexpr int kUpd = (D + 3) / 4;   // float4s holding slots 0..D-1
+  if (lane == D) {
+    acc[D] = fmaxf(acc[D], dminl);
+#pragma unroll
+    for (int q = 0; q < kPub; ++q)
+      reinterpret_cast<float4*>(b)[q] =
+          make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
+  }
+  __syncwarp();
+  const float piv = b[D];
+  const float L = b[lane] * rcp_pivot(piv);
+  float4 v[kUpd > 0 ? kUpd : 1];
+#pragma unroll
+  for (int q = 0; q < kUpd; ++q) v[q] = reinterpret_cast<const float4*>(b)[q];
+  if (lane <= D) mj[lane] = lane < D ? L : piv;
+#pragma unroll
+  for (int q = 0; q < kUpd; ++q) {
+    acc[4 * q] = fmaf(-L, v[q].x, acc[4 * q]);
+    if (4 * q + 1 < D) acc[4 * q + 1] = fmaf(-L, v[q].y, acc[4 * q + 1]);
+    if (4 * q + 2 < D) acc[4 * q + 2] = fmaf(-L, v[q].z, acc[4 * q + 2]);
+    if (4 * q + 3 < D) acc[4 * q + 3] = fmaf(-L, v[q].w, acc[4 * q + 3]);
+  }
+}
+
+// One dof of a chain, then on to its parent at depth D - 1 while `run`
+// says the chain goes on. The broadcast buffer alternates, so one warp
+// barrier per dof orders a publish after the reads of the one before.
+#define K1_STEP(D)                                                      \
+  case D:                                                               \
+    eliminate<D>(acc, dminl, buf + (j & 1) * kWarp, m + j * dp1, lane); \
+    d = D;                                                              \
+    --j;                                                                \
+    if (run-- == 0) break;                                              \
+    [[fallthrough]];
+
+__global__ void __launch_bounds__(kFactorWarps * kWarp)
+ltdl_factor_kernel(const float* __restrict__ R, float* __restrict__ out,
+                   const int* __restrict__ anc, const int* __restrict__ depth,
+                   int n, int nv, int dp1, float reg) {
+  extern __shared__ float smem[];
+  const int sz = nv * dp1;
+  int* s_depth = reinterpret_cast<int*>(smem);
+  int* s_anc = s_depth + round4(nv);
+  const int lane = threadIdx.x % kWarp;
+  const int wib = threadIdx.x / kWarp;
+  const int wpb = blockDim.x / kWarp;
+  const int env0 = blockIdx.x * wpb;
+  const int nenv = min(wpb, n - env0);
+  // two broadcast rows per warp, then the block's envs' rows, contiguous
+  // as in R (16-byte aligned)
+  float* buf = smem + round4(nv) + round4(sz) + wib * 2 * kWarp;
+  float* rows = smem + round4(nv) + round4(sz) + wpb * 2 * kWarp;
+  float* m = rows + wib * sz;
+  const size_t g0 = static_cast<size_t>(env0) * sz;
+  const int total = nenv * sz;
+  const bool vec = ((reinterpret_cast<size_t>(R + g0) |
+                     reinterpret_cast<size_t>(out + g0)) & 15) == 0;
+  for (int i = threadIdx.x; i < nv; i += blockDim.x)
+    cp_async4(reinterpret_cast<float*>(s_depth + i),
+              reinterpret_cast<const float*>(depth + i));
+  for (int i = threadIdx.x; i < sz; i += blockDim.x)
+    cp_async4(reinterpret_cast<float*>(s_anc + i),
+              reinterpret_cast<const float*>(anc + i));
+  // the block's rows in one coalesced sweep of 16-byte copies, padding
+  // included: the padding has to reach the output anyway, and copying the
+  // live slots alone, row by row, measured slower (PERF.md)
+  const int body = vec ? total & ~3 : 0;
+  for (int i = 4 * threadIdx.x; i < body; i += 4 * blockDim.x)
+    cp_async16(rows + i, R + g0 + i);
+  for (int i = body + threadIdx.x; i < total; i += blockDim.x)
+    cp_async4(rows + i, R + g0 + i);
+  buf[lane] = 0.0f;
+  buf[kWarp + lane] = 0.0f;
+  cp_async_wait();
+  __syncthreads();
+  if (wib < nenv) {
+    float acc[kWarp];
+#pragma unroll
+    for (int s = 0; s < kWarp; ++s) acc[s] = 0.0f;
+    float dminl = 0.0f;
+    int j = nv - 1;
+    int lo = 0;
+    while (j >= 0) {
+      int d = s_depth[j];
+      if (lane >= lo && lane <= d) {
+        const float* row = m + s_anc[j * dp1 + lane] * dp1;  // anc[j][d] = j
+#pragma unroll
+        for (int s = 0; s < kWarp; ++s) acc[s] = s <= lane ? row[s] : 0.0f;
+        dminl = reg * fmaxf(fabsf(row[lane]), 1.0f);
+      }
+      // the chain's length: lane i checks that dof j - 1 - i is the parent
+      // of dof j - i, and the first failure ends it
+      const int k = j - 1 - lane;
+      const bool link = lane < d && k >= 0 && s_depth[k > 0 ? k : 0] == d - 1 - lane;
+      int run = __ffs(~__ballot_sync(0xffffffffu, link)) - 1;
+      switch (d) {
+        K1_STEP(31) K1_STEP(30) K1_STEP(29) K1_STEP(28) K1_STEP(27)
+        K1_STEP(26) K1_STEP(25) K1_STEP(24) K1_STEP(23) K1_STEP(22)
+        K1_STEP(21) K1_STEP(20) K1_STEP(19) K1_STEP(18) K1_STEP(17)
+        K1_STEP(16) K1_STEP(15) K1_STEP(14) K1_STEP(13) K1_STEP(12)
+        K1_STEP(11) K1_STEP(10) K1_STEP(9) K1_STEP(8) K1_STEP(7)
+        K1_STEP(6) K1_STEP(5) K1_STEP(4) K1_STEP(3) K1_STEP(2)
+        K1_STEP(1) K1_STEP(0)
+      }
+      if (j >= 0) lo = min(d, s_depth[j] + 1);
+    }
+  }
+  // the factor, padding untouched, out in one coalesced sweep
+  __syncthreads();
+  float* dst = out + g0;
+  for (int i = 4 * threadIdx.x; i < body; i += 4 * blockDim.x)
+    *reinterpret_cast<float4*>(dst + i) = *reinterpret_cast<const float4*>(rows + i);
+  for (int i = body + threadIdx.x; i < total; i += blockDim.x) dst[i] = rows[i];
+}
+
+#undef K1_STEP
+
 // The launcher cannot read `depth` (device memory), so it sizes the column
 // store for the most a preorder tree of this size can hold: depth[k] <=
 // min(k, dp1 - 1) slots in all, plus up to 3 floats of alignment for each
@@ -544,27 +674,31 @@ void allow_large_smem(const void* fn) {
                        static_cast<int>(kMaxSmem));
 }
 
-int warps_per_block(size_t bytes_per_warp) {
-  int w = static_cast<int>(kSmemLimit / bytes_per_warp);
-  return w < kMaxWarpsPerBlock ? w : kMaxWarpsPerBlock;
-}
-
 }  // namespace
 
 // Each entry point launches on `stream` and returns cudaGetLastError()
-// (0 = launched). Sizes are checked by the Python wrapper: for K1,
-// dp1 <= 32 and one warp's shared memory within the 48 KB default; for K2,
-// dofs in depth-first preorder and one env's shared memory (the tables and
-// the column bound below included) within a block's 227 KB.
+// (0 = launched). Sizes are checked by the Python wrapper: dofs in
+// depth-first preorder and one env's shared memory (the block's tables
+// included) within a block's 227 KB; for K1 also dp1 <= 32, for K2 the
+// column bound below.
 extern "C" int ltdl_factor(const float* R, float* out, const int* anc,
                            const int* depth, const int* order, int n, int nv,
                            int dp1, float reg, void* stream) {
-  const size_t per_warp = sizeof(float) * nv * dp1;
-  const int w = warps_per_block(per_warp);
+  // the elimination runs in descending index order (preorder reversed)
+  (void)order;
+  static const bool once = (allow_large_smem(
+      reinterpret_cast<const void*>(ltdl_factor_kernel)), true);
+  (void)once;
+  const size_t rows = static_cast<size_t>(nv) * dp1;
+  const size_t tables = sizeof(int) * (((nv + 3) & ~3) + ((rows + 3) & ~size_t{3}));
+  const size_t per_env = sizeof(float) * (rows + 2 * kWarp);
+  int w = static_cast<int>((kMaxSmem - tables) / per_env);
+  if (w > kFactorWarps) w = kFactorWarps;
+  if (w < 1 || dp1 > kWarp) return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (n + w - 1) / w;
-  ltdl_factor_kernel<<<blocks, w * kWarp, w * per_warp,
+  ltdl_factor_kernel<<<blocks, w * kWarp, tables + w * per_env,
                        static_cast<cudaStream_t>(stream)>>>(
-      R, out, anc, depth, order, n, nv, dp1, reg);
+      R, out, anc, depth, n, nv, dp1, reg);
   return static_cast<int>(cudaGetLastError());
 }
 

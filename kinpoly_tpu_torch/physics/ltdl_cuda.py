@@ -15,8 +15,15 @@ import torch
 from kinpoly_tpu_torch import native
 from kinpoly_tpu_torch.physics import ltdl
 
-_SMEM_LIMIT = 48 * 1024      # K1: one warp's rows within the default
-SMEM_MAX = 232448            # K2: a block's most on sm_90 (227 KB)
+SMEM_MAX = 232448            # a block's most on sm_90 (227 KB)
+
+
+def factor_smem_bytes(nv: int, dp1: int) -> int:
+    """Shared memory of a K1 block with one env: the block's depth and
+    ancestor tables (each rounded to 16 bytes), then per env two broadcast
+    rows of 32 floats and its packed rows."""
+    r4 = lambda x: (x + 3) // 4 * 4
+    return 4 * (r4(nv) + r4(nv * dp1) + 64 + nv * dp1)
 
 
 def solve_smem_bytes(nv: int, dp1: int, nr: int) -> int:
@@ -63,6 +70,12 @@ def factor(topo: ltdl.LTDLTopo, R: torch.Tensor) -> torch.Tensor:
     _check("ltdl_factor", R, (nv, dp1))
     if dp1 > 32:
         raise ValueError(f"ltdl_factor: tree depth {dp1 - 1} exceeds a warp")
+    if not topo.preorder:
+        raise ValueError("ltdl_factor: the kernel needs the dofs in "
+                         "depth-first preorder")
+    if factor_smem_bytes(nv, dp1) > SMEM_MAX:
+        raise ValueError(f"ltdl_factor: {nv} dofs exceed the kernel's "
+                         f"shared memory")
     anc, depth, order = _tables(topo, R.device)
     n = R.numel() // (nv * dp1)
     out = torch.empty_like(R)

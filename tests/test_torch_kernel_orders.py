@@ -1,28 +1,36 @@
-"""The order of operations of the CUDA kernels K2 (LTDL solve) and K3
-(block PSOR), emulated in PyTorch on the CPU.
+"""The order of operations of the CUDA kernels K1 (LTDL factor), K2 (LTDL
+solve) and K3 (block PSOR), emulated in PyTorch on the CPU.
 
 The kernels run only on the card, where ``chip_smoke.py`` and
 ``tests/test_torch_kernels_cuda.py`` hold them to their plain versions.
 Here the emulations check what the kernels compute differently from the
 plain versions: K3 keeps v = A f incrementally, starting each sweep from
-A f summed afresh during the sweep before, and K2 runs its passes over the
+A f summed afresh during the sweep before, K2 runs its passes over the
 subtree ranges of a depth-first preorder (for R > 1 in parent-child units),
-from a staged column layout that it derives from the depth table.
+from a staged column layout that it derives from the depth table, and K1
+eliminates in descending index order with the pending rows of the current
+dof's ancestors held one per lane, multiplying by reciprocal pivots.
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from kinpoly_tpu.physics import ltdl as jltdl
 from kinpoly_tpu.physics.pallas_pgs import pgs_solve_pallas
 from kinpoly_tpu_torch.anim import spec as sp
 from kinpoly_tpu_torch.physics import contact as ct
 from kinpoly_tpu_torch.physics import dynamics as dyn
 from kinpoly_tpu_torch.physics import ltdl
+from torch_trees import random_preorder_parents, tree_spd_packed
 
 PGS_RTOL, PGS_ATOL = 2e-4, 2e-5   # as tests/test_pallas_pgs.py:69
 SOLVE_RTOL = 1e-10                # float64, relative to max |x|
+FACTOR_RTOL = 1e-10               # float64, relative to max |Rf|
 
 
 # --- K3 ---------------------------------------------------------------------
@@ -219,6 +227,132 @@ def test_solve_kernel_order_matches_plain(humanoid, nr):
     assert float((out - ref).abs().max()) <= SOLVE_RTOL * float(ref.abs().max())
 
 
+
+# --- K1 ---------------------------------------------------------------------
+
+def factor_push_from(depth: np.ndarray) -> np.ndarray:
+    """lo[j]: the first depth at which K1 loads fresh input rows when it
+    reaches dof j. K1 eliminates in descending index order and lane t of
+    its warp holds the pending row of the current dof's ancestor at depth
+    t. In depth-first preorder every ancestor of dof j + 1 above its own
+    depth is also an ancestor of j, so going from j + 1 to j keeps lanes
+    t < depth[j + 1] and loads the rows of j's path at depths lo[j] ..
+    depth[j] (none when j is the parent of j + 1, lo = depth + 1). The
+    kernel derives the same numbers from the depth table."""
+    nxt = np.concatenate([np.asarray(depth[1:], np.int64), [0]])
+    return np.minimum(nxt, np.asarray(depth, np.int64) + 1)
+
+
+def factor_kernel_order(topo, R, reg=ltdl.DIAG_REG):
+    """K1's order. Dofs go in descending index (the depth-first preorder
+    reversed, so a dof's subtree is done before it). Lane t of the warp
+    holds acc[t], the pending packed row of the current dof's ancestor at
+    depth t, in registers; arriving at dof j, lanes lo[j] .. depth[j] load
+    the input rows of j's new path (slots above the lane's depth zeroed),
+    the others keep theirs. Then the row of j (lane depth[j]) is broadcast
+    through shared memory, its pivot is floored at reg * max(|M_jj|, 1) of
+    the INPUT diagonal and inverted once, L = row * (1 / D) is written out,
+    and every lane t < depth[j] subtracts L_t * row[s] from its row: the
+    contributions to an ancestor are summed in the walk's order, not level
+    by level. Slots s > t of lane t are never read. Padding slots pass
+    through."""
+    depth, anc, nv = topo.depth, topo.anc_idx, topo.nv
+    width = topo.dmax + 1
+    lo = factor_push_from(depth)
+    out = R.clone()
+    acc = R.new_zeros(R.shape[:-2] + (width, width))
+    for j in range(nv - 1, -1, -1):
+        d = int(depth[j])
+        for t in range(int(lo[j]), d + 1):
+            acc[..., t, :] = 0.0
+            acc[..., t, :t + 1] = R[..., anc[j, t], :t + 1]   # anc[j, d] = j
+        row = acc[..., d, :].clone()
+        dmin = reg * torch.clamp(R[..., j, d].abs(), min=1.0)
+        D = torch.maximum(row[..., d], dmin)
+        L = row[..., :d] * (1.0 / D)[..., None]
+        out[..., j, :d] = L
+        out[..., j, d] = D
+        acc[..., :d, :d] -= L[..., :, None] * row[..., None, :d]
+    return out
+
+
+def _assert_factor_close(out, ref):
+    err = float((out - ref).abs().max())
+    assert err <= FACTOR_RTOL * float(ref.abs().max()), err
+
+
+@functools.cache
+def _jax_factor_fn(parents: tuple):
+    # jitted: eager JAX compiles each level's ops one by one
+    topo_j = jltdl.build_topo(np.asarray(parents))
+    return jax.jit(lambda R: jltdl.factor(topo_j, R))
+
+
+def _jax_factor(parents, R):
+    fn = _jax_factor_fn(tuple(int(p) for p in parents))
+    return np.asarray(fn(jnp.asarray(R.numpy())))
+
+
+@pytest.mark.parametrize("which", ["M", "A"])
+def test_factor_kernel_order_matches_jax_on_the_humanoid(humanoid, which):
+    """Both systems the engine factors: M, and M + Kd dt."""
+    spec, st, tables, topo = humanoid
+    rng = np.random.RandomState(40)
+    q0, _ = sp.standing_pose(spec)
+    qpos = np.repeat(q0[None], 4, axis=0)
+    qpos[:, 7:] += rng.uniform(-0.6, 0.6, (4, 69))
+    R = ltdl.crba_packed(st, tables, topo, dyn.kin_state(st, torch.tensor(qpos)))
+    if which == "A":
+        R = ltdl.add_diag(topo, R, torch.tensor(rng.uniform(0, 100, (4, 75))
+                                                * spec.timestep))
+    ref = _jax_factor(tables.dof_parent, R)
+    _assert_factor_close(factor_kernel_order(topo, R), torch.tensor(ref))
+    _assert_factor_close(ltdl.factor(topo, R), torch.tensor(ref))
+
+
+@pytest.mark.parametrize("tree", ["chain32", "random"])
+def test_factor_kernel_order_matches_jax_on_other_trees(tree):
+    """A chain of 32 dofs (the kernel's deepest tree, Dmax + 1 = 32) and a
+    random preorder tree with Dmax + 1 <= 32, some of whose pivots are
+    floored."""
+    rng = np.random.RandomState(41)
+    if tree == "chain32":
+        parents = np.arange(32) - 1
+    else:
+        parents = random_preorder_parents(rng, 60, 32)
+    topo = ltdl.build_topo(parents, torch.float64, "cpu")
+    assert topo.preorder and topo.dmax + 1 <= 32
+    if tree == "chain32":
+        assert topo.dmax + 1 == 32
+    else:
+        assert len(topo.levels[0]) == 1 and (np.diff(topo.depth) <= 0).sum() > 3
+    R = tree_spd_packed(rng, topo, 3, zero_pivots=0 if tree == "chain32" else 4)
+    ref = torch.tensor(_jax_factor(parents, R))
+    _assert_factor_close(factor_kernel_order(topo, R), ref)
+    dmin = ltdl.DIAG_REG * torch.clamp(ltdl.diag_of(topo, R).abs(), min=1.0)
+    floored = int((ltdl.diag_of(topo, ref) == dmin).sum())
+    assert floored == (0 if tree == "chain32" else 3 * 4), floored
+
+
+def test_factor_kernel_order_passes_nonzero_padding_through(humanoid):
+    """Padding slots of the input come out unchanged, live slots as if the
+    padding were 0."""
+    spec, st, tables, topo = humanoid
+    rng = np.random.RandomState(42)
+    q0, _ = sp.standing_pose(spec)
+    qpos = np.repeat(q0[None], 4, axis=0)
+    qpos[:, 7:] += rng.uniform(-0.6, 0.6, (4, 69))
+    R = ltdl.crba_packed(st, tables, topo, dyn.kin_state(st, torch.tensor(qpos)))
+    pad = torch.tensor(rng.normal(size=R.shape)) * (1.0 - topo.valid)
+    out = factor_kernel_order(topo, R + pad)
+    ref = torch.tensor(_jax_factor(tables.dof_parent, R + pad))
+    _assert_factor_close(out, ref)
+    pad_slots = topo.valid == 0
+    assert float(pad[..., pad_slots].abs().min()) > 0
+    assert torch.equal(out[..., pad_slots], (R + pad)[..., pad_slots])
+    _assert_factor_close(out * topo.valid, factor_kernel_order(topo, R))
+
+
 # --- topology tables ----------------------------------------------------------
 
 def test_subtree_tables_match_descendants(humanoid):
@@ -252,3 +386,24 @@ def test_preorder_flag_rejects_other_orders():
     np.testing.assert_array_equal(ltdl.subtree_end(pre.depth), [4, 3, 3, 4])
     post = ltdl.build_topo(np.array([-1, 0, 0, 1]), torch.float64, "cpu")
     assert not post.preorder
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_factor_push_lanes_keep_the_shared_ancestors(humanoid, seed):
+    """Going from dof j + 1 to dof j, K1's lanes t < lo[j] keep their rows:
+    those are ancestors of both dofs; lanes lo[j] .. depth[j] take j's own
+    path (seed 0: the humanoid; 1, 2: random preorder trees)."""
+    if seed == 0:
+        topo = humanoid[3]
+    else:
+        parents = random_preorder_parents(np.random.RandomState(seed), 50, 32)
+        topo = ltdl.build_topo(parents, torch.float64, "cpu")
+    anc, depth, nv = topo.anc_idx, topo.depth, topo.nv
+    lo = factor_push_from(depth)
+    assert lo[nv - 1] == 0
+    for j in range(nv - 1):
+        keep = int(lo[j])
+        assert keep <= depth[j + 1]
+        np.testing.assert_array_equal(anc[j, :keep], anc[j + 1, :keep])
+        if keep == depth[j] + 1:     # j is the parent of j + 1
+            assert anc[j + 1, depth[j]] == j

@@ -16,6 +16,7 @@ from kinpoly_tpu_torch.anim import spec as sp
 from kinpoly_tpu_torch.physics import contact as ct
 from kinpoly_tpu_torch.physics import dynamics as dyn
 from kinpoly_tpu_torch.physics import chol, chol_cuda, ltdl, ltdl_cuda, pgs_cuda
+from torch_trees import random_preorder_parents, tree_spd_packed
 
 LTDL_ATOL = 1e-3            # as tests/test_pallas_ltdl.py:48,60
 PGS_RTOL, PGS_ATOL = 2e-4, 2e-5   # as tests/test_pallas_pgs.py:69
@@ -57,6 +58,58 @@ def test_factor_kernel(packed):
     torch.cuda.synchronize()
     assert native.LAUNCHES["ltdl_factor"] == before + 1
     assert float((Rf - ltdl.factor(topo, R)).abs().max()) < LTDL_ATOL
+
+
+@pytest.mark.parametrize("n", [1, 3, 2048, 2049])
+def test_factor_kernel_env_counts(packed, n):
+    """One env, a block's worth of envs short of full, the main path's 2048
+    and one more (a last block with one env)."""
+    topo, R, rng = packed
+    Rn = R[torch.as_tensor(rng.randint(0, R.shape[0], n), device=R.device)]
+    before = native.LAUNCHES["ltdl_factor"]
+    Rf = ltdl_cuda.factor(topo, Rn)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["ltdl_factor"] == before + 1
+    assert Rf.shape == Rn.shape
+    assert float((Rf - ltdl.factor(topo, Rn)).abs().max()) < LTDL_ATOL
+
+
+def test_factor_kernel_passes_nonzero_padding_through(packed):
+    topo, R, rng = packed
+    invalid = topo.valid == 0
+    pad = torch.tensor(rng.normal(size=tuple(R.shape)), dtype=torch.float32,
+                       device=R.device) * invalid
+    Rp = (R + pad).contiguous()
+    Rf = ltdl_cuda.factor(topo, Rp)
+    torch.cuda.synchronize()
+    assert float((Rf - ltdl.factor(topo, Rp)).abs().max()) < LTDL_ATOL
+    assert torch.equal(Rf[..., invalid], Rp[..., invalid])
+    assert float(pad[..., invalid].abs().min()) > 0
+
+
+@pytest.mark.parametrize("tree", ["chain32", "random"])
+def test_factor_kernel_other_trees(cuda, tree):
+    """A chain of 32 dofs (the wrapper's limit, Dmax + 1 = 32) and a random
+    preorder tree of 60 dofs with Dmax + 1 <= 32."""
+    rng = np.random.RandomState(9)
+    parents = (np.arange(32) - 1 if tree == "chain32"
+               else random_preorder_parents(rng, 60, 32))
+    topo = ltdl.build_topo(parents, torch.float32, cuda)
+    assert topo.preorder and topo.dmax + 1 <= 32
+    R = tree_spd_packed(rng, topo, 37, dtype=torch.float32,
+                        device=cuda).contiguous()
+    Rf = ltdl_cuda.factor(topo, R)
+    torch.cuda.synchronize()
+    assert float((Rf - ltdl.factor(topo, R)).abs().max()) < LTDL_ATOL
+
+
+def test_factor_refuses_deep_and_out_of_preorder_trees(cuda):
+    deep = ltdl.build_topo(np.arange(33) - 1, torch.float32, cuda)
+    with pytest.raises(ValueError):
+        ltdl_cuda.factor(deep, torch.ones(2, 33, 33, device=cuda))
+    post = ltdl.build_topo(np.array([-1, 0, 0, 1]), torch.float32, cuda)
+    with pytest.raises(ValueError):
+        ltdl_cuda.factor(post, torch.ones(2, 4, post.dmax + 1, device=cuda))
 
 
 @pytest.mark.parametrize("nr", [1, 55])
