@@ -30,7 +30,8 @@ Phases, one line each with its seconds:
   7. dense    one iteration of the same training with the dense Cholesky
               configuration (kernel K4a), launches counted; then one
               control step of 4 envs on the card against the CPU float64
-              plain dense path
+              plain dense path; prints the dense kernel ms per control
+              step (launches x ms at 2048 envs, summed over K4a and K3)
 Then a JSON line with every kernel's numbers, the card's nvidia-smi line,
 and as the last line {"ok": true, "device": {...}}. Any failure exits
 non-zero before that line; a watchdog ends the run past 10 minutes.
@@ -234,8 +235,6 @@ def check_chol_kernels(dense_model, device) -> tuple[list[dict], list[str]]:
             fail(f"{name} on the substep's systems: relative err {rel:.3g} "
                  f">= {SOLVE_RTOL}")
         b, by = chol_bound(N_ENVS, n, nr, factor=True, l_out=False)
-        pair = cuda_ms(lambda: torch.cholesky_solve(
-            Bs, torch.linalg.cholesky_ex(As)[0]), 20)
         out.append(dict(
             name=name, route="cuda", source="kinpoly_tpu_torch/csrc/chol.cu",
             replaces="kinpoly_tpu/physics/pallas_chol.py:124",
@@ -244,10 +243,14 @@ def check_chol_kernels(dense_model, device) -> tuple[list[dict], list[str]]:
             plain_ms=cuda_ms(lambda: chol.solve_only(As, Bs), 3),
             bound_ms=b, bound_by=by,
             library_ms=cuda_ms(lambda: torch.linalg.solve(As, Bs), 20),
-            library="torch.linalg.solve"))
+            library="torch.linalg.solve",
+            # the nearer counterpart: the factor, then the two solves
+            library_pair_ms=cuda_ms(lambda: torch.cholesky_solve(
+                Bs, torch.linalg.cholesky_ex(As)[0]), 20),
+            library_pair="torch.linalg.cholesky_ex + torch.cholesky_solve"))
         msgs.append(f"{name} err {err:.3g} (substep rel {rel:.3g}) "
                     f"{out[-1]['ms']:.4f} ms, cholesky_ex+cholesky_solve "
-                    f"{pair:.4f} ms")
+                    f"{out[-1]['library_pair_ms']:.4f} ms")
 
     # K4b and K4c: no engine caller; timed on the substep's M at R = 55
     Ms, Bs = sub[55]
@@ -685,6 +688,12 @@ def main() -> None:
     for k in kernels:
         if k["name"].startswith("chol_solve_only"):
             k["launches"] = tr["launches"][k["name"]]
+    # launches x ms at N = 2048 over the kernels of the dense path (K4a at
+    # both widths, K3), per control step of the dense training run
+    ms_of = {k["name"]: k["ms"] for k in kernels}
+    d_ms = sum(c * ms_of[name] for name, c in tr["launches"].items()) / n
+    say("dense", f"dense kernel time per control step at N={N_ENVS}: "
+        f"{d_ms:.3f} ms (sum of launches x ms over {n} control steps)", tp)
     del tr
 
     print(json.dumps({"kernels": kernels}), flush=True)

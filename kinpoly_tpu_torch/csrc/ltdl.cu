@@ -682,10 +682,8 @@ void allow_large_smem(const void* fn) {
 // included) within a block's 227 KB; for K1 also dp1 <= 32, for K2 the
 // column bound below.
 extern "C" int ltdl_factor(const float* R, float* out, const int* anc,
-                           const int* depth, const int* order, int n, int nv,
-                           int dp1, float reg, void* stream) {
-  // the elimination runs in descending index order (preorder reversed)
-  (void)order;
+                           const int* depth, int n, int nv, int dp1, float reg,
+                           void* stream) {
   static const bool once = (allow_large_smem(
       reinterpret_cast<const void*>(ltdl_factor_kernel)), true);
   (void)once;
@@ -703,12 +701,8 @@ extern "C" int ltdl_factor(const float* R, float* out, const int* anc,
 }
 
 extern "C" int ltdl_solve(const float* Rf, const float* B, float* X,
-                          const int* anc, const int* depth, const int* order,
-                          int n, int nv, int dp1, int nr, void* stream) {
-  // the preorder passes need neither the ancestor table nor the
-  // elimination order: the subtree ranges come from the depths
-  (void)anc;
-  (void)order;
+                          const int* depth, int n, int nv, int dp1, int nr,
+                          void* stream) {
   const int ncm = col_bound(nv, dp1);
   const size_t tables = sizeof(int) * ((3 * nv + 3) & ~3);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -35,8 +35,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # name: argtypes (pointers, sizes, stream); every function returns the
     # launch's cudaGetLastError() as int
-    "ltdl_factor": (_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P),
-    "ltdl_solve": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "ltdl_factor": (_P, _P, _P, _P, _I, _I, _I, ctypes.c_float, _P),
+    "ltdl_solve": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "pgs_solve": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "chol_solve_only": (_P, _P, _P, _I, _I, _I, _P),
     "chol_factor_solve": (_P, _P, _P, _P, _I, _I, _I, _P),

@@ -39,7 +39,7 @@ class LTDLTopo(NamedTuple):
     anc_idx_t: torch.Tensor  # (nv, Dmax+1) int64
     valid: torch.Tensor      # (nv, Dmax+1) 1 where slot t <= depth[k]
     diag_onehot: torch.Tensor  # (nv, Dmax+1) 1 at slot depth[k]
-    kernel_tables: tuple     # int32 (anc (nv*(Dmax+1)), depth (nv), order (nv))
+    kernel_tables: tuple     # int32 (anc (nv*(Dmax+1)), depth (nv))
     preorder: bool           # dofs in depth-first preorder (kernel K2 needs it)
 
 
@@ -98,8 +98,6 @@ def build_topo(dof_parent: np.ndarray, dtype: torch.dtype, device) -> LTDLTopo:
     slots = np.arange(dmax + 1)[None, :]
     levels = tuple(np.asarray([k for k in range(nv) if depth[k] == d],
                               dtype=np.int64) for d in range(dmax + 1))
-    # elimination order: deepest level first, ascending dof within a level
-    order = np.concatenate(levels[::-1]).astype(np.int32)
     t = lambda x, dt=dtype: torch.as_tensor(x, dtype=dt, device=device)
     return LTDLTopo(
         anc_idx=anc_idx, depth=depth, levels=levels, nv=nv, dmax=dmax,
@@ -107,7 +105,7 @@ def build_topo(dof_parent: np.ndarray, dtype: torch.dtype, device) -> LTDLTopo:
         valid=t((slots <= depth[:, None]).astype(np.float64)),
         diag_onehot=t((slots == depth[:, None]).astype(np.float64)),
         kernel_tables=(t(anc_idx.reshape(-1), torch.int32),
-                       t(depth, torch.int32), t(order, torch.int32)),
+                       t(depth, torch.int32)),
         preorder=is_preorder(anc_idx, depth))
 
 

@@ -76,14 +76,14 @@ def factor(topo: ltdl.LTDLTopo, R: torch.Tensor) -> torch.Tensor:
     if factor_smem_bytes(nv, dp1) > SMEM_MAX:
         raise ValueError(f"ltdl_factor: {nv} dofs exceed the kernel's "
                          f"shared memory")
-    anc, depth, order = _tables(topo, R.device)
+    anc, depth = _tables(topo, R.device)
     n = R.numel() // (nv * dp1)
     out = torch.empty_like(R)
     if n == 0:
         return out
     rc = native.library().ltdl_factor(
         R.data_ptr(), out.data_ptr(), anc.data_ptr(), depth.data_ptr(),
-        order.data_ptr(), n, nv, dp1, ltdl.DIAG_REG,
+        n, nv, dp1, ltdl.DIAG_REG,
         torch.cuda.current_stream(R.device).cuda_stream)
     native.check_launch("ltdl_factor", rc)
     return out
@@ -106,14 +106,14 @@ def solve(topo: ltdl.LTDLTopo, Rf: torch.Tensor, B: torch.Tensor) -> torch.Tenso
     if nr < 1 or solve_smem_bytes(nv, dp1, nr) > SMEM_MAX:
         raise ValueError(f"ltdl_solve: {nr} right-hand sides exceed the "
                          f"kernel's shared memory")
-    anc, depth, order = _tables(topo, B.device)
+    _, depth = _tables(topo, B.device)
     n = B.numel() // (nv * nr)
     X = torch.empty_like(B)
     if n == 0:
         return X
     rc = native.library().ltdl_solve(
-        Rf.data_ptr(), B.data_ptr(), X.data_ptr(), anc.data_ptr(),
-        depth.data_ptr(), order.data_ptr(), n, nv, dp1, nr,
+        Rf.data_ptr(), B.data_ptr(), X.data_ptr(), depth.data_ptr(),
+        n, nv, dp1, nr,
         torch.cuda.current_stream(B.device).cuda_stream)
     native.check_launch(f"ltdl_solve[R={nr}]", rc)
     return X

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Time the LTDL path's kernels K1-K3 on the card, three ways.
+"""Time the kernels K1-K3, K4a and K4b on the card, three ways.
 
     python kinpoly_tpu_torch/scripts/bench_kernels.py [--root DIR] [--envs N]
 
 ``--root`` is the checkout whose ``kinpoly_tpu_torch`` and ``chip_smoke.py``
 are timed (default: the one holding this script), so two versions can be
 compared in one call on one card. The inputs are those of one captured
-substep of N envs (default 2048, the main path's kernel shapes), as
-``chip_smoke.py`` builds them. For each kernel it prints one JSON line:
+substep of N envs (default 2048, the main path's kernel shapes) in each
+solver configuration, as ``chip_smoke.py`` builds them: K1-K3 from the
+LTDL substep, K4a (R = 55 and 1) and K4b (R = 55, on K4a's inputs) from
+the dense one. For each kernel it prints one JSON line:
 
 - ``wrapper_ms``: CUDA events around a run of eager wrapper calls, as
   ``chip_smoke.py`` times them: what a Python caller pays, the host's
@@ -47,7 +49,7 @@ def main() -> None:
     from kinpoly_tpu_torch.anim.spec import synthetic_spec
     from kinpoly_tpu_torch.config.defaults import uhc_control_params
     from kinpoly_tpu_torch.physics import engine as eng
-    from kinpoly_tpu_torch.physics import ltdl_cuda, pgs_cuda
+    from kinpoly_tpu_torch.physics import chol_cuda, ltdl_cuda, pgs_cuda
     if not os.path.abspath(kinpoly_tpu_torch.__file__).startswith(root + os.sep):
         sys.exit(f"bench_kernels: imported {kinpoly_tpu_torch.__file__}, "
                  f"not from {root}")
@@ -68,6 +70,15 @@ def main() -> None:
         "ltdl_solve[R=1]": lambda: ltdl_cuda.solve(topo, *solves[1]),
         "pgs_solve": lambda: pgs_cuda.pgs_solve(*pa[:6], iters),
     }
+    dense = eng.build_model(spec, uhc_control_params(spec), device=device,
+                            use_pallas_chol=True)
+    dense_calls = chip_smoke.capture_substep(dense, args.envs, 0)
+    spd = {a[1].shape[-1]: a[:2] for a, _ in dense_calls["chol"]}
+    fns.update({
+        "chol_solve_only[R=55]": lambda: chol_cuda.solve_only(*spd[55]),
+        "chol_solve_only[R=1]": lambda: chol_cuda.solve_only(*spd[1]),
+        "chol_factor_solve[R=55]": lambda: chol_cuda.factor_solve(*spd[55]),
+    })
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
@@ -103,7 +114,7 @@ def main() -> None:
             torch.cuda.synchronize()
         times = [e.device_time for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA
-                 and ("ltdl_" in e.name or "pgs_kernel" in e.name)]
+                 and any(k in e.name for k in ("ltdl_", "pgs_kernel", "chol_"))]
         return float(np.mean(times)) / 1e3 if times else None
 
     for name, fn in fns.items():

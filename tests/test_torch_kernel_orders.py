@@ -1,5 +1,6 @@
 """The order of operations of the CUDA kernels K1 (LTDL factor), K2 (LTDL
-solve) and K3 (block PSOR), emulated in PyTorch on the CPU.
+solve), K3 (block PSOR) and K4a/K4b (dense Cholesky solve), emulated on the
+CPU.
 
 The kernels run only on the card, where ``chip_smoke.py`` and
 ``tests/test_torch_kernels_cuda.py`` hold them to their plain versions.
@@ -10,6 +11,11 @@ subtree ranges of a depth-first preorder (for R > 1 in parent-child units),
 from a staged column layout that it derives from the depth table, and K1
 eliminates in descending index order with the pending rows of the current
 dof's ancestors held one per lane, multiplying by reciprocal pivots.
+K4a/K4b factor [A | B]^T (the right-hand sides as extra rows, so the
+forward solve comes with the factor) left-looking in panels of 4 columns,
+each panel's 4 x 4 pivot block by reciprocal square roots, then solve
+L^T X = Y panel by panel from the last; with one right-hand side the
+lanes of a warp split each panel's sum.
 """
 
 import functools
@@ -21,6 +27,7 @@ import pytest
 import torch
 
 from kinpoly_tpu.physics import ltdl as jltdl
+from kinpoly_tpu.physics import pallas_chol as jchol
 from kinpoly_tpu.physics.pallas_pgs import pgs_solve_pallas
 from kinpoly_tpu_torch.anim import spec as sp
 from kinpoly_tpu_torch.physics import contact as ct
@@ -31,6 +38,7 @@ from torch_trees import random_preorder_parents, tree_spd_packed
 PGS_RTOL, PGS_ATOL = 2e-4, 2e-5   # as tests/test_pallas_pgs.py:69
 SOLVE_RTOL = 1e-10                # float64, relative to max |x|
 FACTOR_RTOL = 1e-10               # float64, relative to max |Rf|
+CHOL_RTOL = 1e-10                 # float64, relative to max |x| and max |L|
 
 
 # --- K3 ---------------------------------------------------------------------
@@ -407,3 +415,155 @@ def test_factor_push_lanes_keep_the_shared_ancestors(humanoid, seed):
         np.testing.assert_array_equal(anc[j, :keep], anc[j + 1, :keep])
         if keep == depth[j] + 1:     # j is the parent of j + 1
             assert anc[j + 1, depth[j]] == j
+
+
+# --- K4a / K4b ----------------------------------------------------------------
+
+def _rsqrt(d):
+    with np.errstate(invalid="ignore", divide="ignore"):
+        return 1.0 / np.sqrt(d)
+
+
+def chol_kernel_order(A, B):
+    """K4a/K4b's order on float64 numpy inputs; returns (L, X). Rows are
+    padded to np = n rounded up to 4 with an identity block, and the
+    right-hand sides are extra rows, E = [A | B]^T (upper triangle of A
+    never read: it enters as NaN). For each panel j0 of 4 columns, every
+    row r >= j0 sums its 4 panel entries over k < j0 in ascending k; the
+    4 x 4 block's pivots are taken by reciprocal square roots, each row is
+    solved against the block (the diagonal rows giving d * rsqrt(d) and
+    zeros above), and the reciprocal pivots are kept. The backward solve
+    L^T X = Y goes panel by panel from the last: with R > 1 each
+    right-hand side sums its panel entries over k > i0 + 3 in ascending k;
+    with R = 1 lane l of a warp sums k = i0 + 4 + l, + 32, ... and a
+    butterfly (xor 16, 8, 4, 2, 1) adds the lanes. Then the block, from
+    its last column."""
+    A = np.asarray(A, np.float64)
+    B = np.asarray(B, np.float64)
+    N, n, nr = A.shape[0], A.shape[-1], B.shape[-1]
+    npd = (n + 3) // 4 * 4
+    low = np.tril(np.ones((n, n), bool))
+    E = np.full((N, npd + nr, npd), np.nan)
+    E[:, :n, :n] = np.where(low, A, np.nan)
+    E[:, n:npd, :] = 0.0
+    for r in range(n, npd):
+        E[:, r, r] = 1.0
+    E[:, npd:, :n] = np.swapaxes(B, 1, 2)
+    E[:, npd:, n:] = 0.0
+    rinv = np.zeros((N, npd))
+    col = lambda v: v[:, None]
+    for j0 in range(0, npd, 4):
+        acc = E[:, j0:, j0:j0 + 4].copy()
+        for k in range(j0):
+            acc -= E[:, j0:, k, None] * E[:, None, j0:j0 + 4, k]
+        d = acc[:, :4]
+        rv0 = _rsqrt(d[:, 0, 0])
+        l10 = d[:, 1, 0] * rv0
+        rv1 = _rsqrt(d[:, 1, 1] - l10 * l10)
+        l20 = d[:, 2, 0] * rv0
+        l21 = (d[:, 2, 1] - l20 * l10) * rv1
+        rv2 = _rsqrt(d[:, 2, 2] - l20 * l20 - l21 * l21)
+        l30 = d[:, 3, 0] * rv0
+        l31 = (d[:, 3, 1] - l30 * l10) * rv1
+        l32 = (d[:, 3, 2] - l30 * l20 - l31 * l21) * rv2
+        rv3 = _rsqrt(d[:, 3, 3] - l30 * l30 - l31 * l31 - l32 * l32)
+        L = np.empty_like(acc)
+        L[..., 0] = acc[..., 0] * col(rv0)
+        L[..., 1] = (acc[..., 1] - L[..., 0] * col(l10)) * col(rv1)
+        L[..., 2] = (acc[..., 2] - L[..., 0] * col(l20) - L[..., 1] * col(l21)) * col(rv2)
+        L[..., 3] = (acc[..., 3] - L[..., 0] * col(l30) - L[..., 1] * col(l31)
+                     - L[..., 2] * col(l32)) * col(rv3)
+        for c0 in range(3):
+            L[:, c0, c0 + 1:] = 0.0
+        E[:, j0:, j0:j0 + 4] = L
+        rinv[:, j0:j0 + 4] = np.stack([rv0, rv1, rv2, rv3], -1)
+    for i0 in range(npd - 4, -1, -4):
+        e = E[:, i0:i0 + 4, i0:i0 + 4]
+        rv = rinv[:, i0:i0 + 4]
+        if nr == 1:
+            x = E[:, npd]
+            part = np.zeros((N, 32, 4))
+            for idx, k in enumerate(range(i0 + 4, npd)):
+                part[:, idx % 32] += E[:, k, i0:i0 + 4] * x[:, k, None]
+            for o in (16, 8, 4, 2, 1):
+                part = part + part[:, np.arange(32) ^ o]
+            acc = (x[:, i0:i0 + 4] - part[:, 0])[:, None]
+        else:
+            acc = E[:, npd:, i0:i0 + 4].copy()
+            for k in range(i0 + 4, npd):
+                acc -= E[:, npd:, k, None] * E[:, None, k, i0:i0 + 4]
+        x3 = acc[..., 3] * col(rv[:, 3])
+        x2 = (acc[..., 2] - col(e[:, 3, 2]) * x3) * col(rv[:, 2])
+        x1 = (acc[..., 1] - col(e[:, 2, 1]) * x2 - col(e[:, 3, 1]) * x3) * col(rv[:, 1])
+        x0 = (acc[..., 0] - col(e[:, 1, 0]) * x1 - col(e[:, 2, 0]) * x2
+              - col(e[:, 3, 0]) * x3) * col(rv[:, 0])
+        E[:, npd:, i0:i0 + 4] = np.stack([x0, x1, x2, x3], -1)
+    return np.where(low, E[:, :n, :n], 0.0), np.swapaxes(E[:, npd:, :n], 1, 2)
+
+
+def _chol_spd(rng, batch, n):
+    """The SPD systems of tests/test_pallas_chol.py."""
+    J = rng.randn(batch, n, n + 8)
+    return J @ np.swapaxes(J, -1, -2) + np.eye(n) * (n * 0.1)
+
+
+def _assert_chol_close(L, X, L_ref, X_ref):
+    assert float(np.abs(X - X_ref).max()) <= CHOL_RTOL * float(np.abs(X_ref).max())
+    assert float(np.abs(L - L_ref).max()) <= CHOL_RTOL * float(np.abs(L_ref).max())
+
+
+@pytest.mark.parametrize("kernel,nr", [("chol_solve_only", 1),
+                                       ("chol_factor_solve", 55)])
+def test_chol_kernel_order_matches_pallas(kernel, nr):
+    """Against the Pallas kernels in interpret mode, in float64."""
+    rng = np.random.RandomState(50 + nr)
+    A = _chol_spd(rng, 3, 75)
+    B = rng.randn(3, 75, nr)
+    L, X = chol_kernel_order(A, B)
+    if kernel == "chol_solve_only":
+        X_j = np.asarray(jchol.chol_solve_only(A, B, interpret=True))
+        L_j = np.linalg.cholesky(A)
+    else:
+        L_j, X_j = (np.asarray(x) for x in jchol.chol_factor_solve(A, B, interpret=True))
+    assert X_j.dtype == np.float64
+    _assert_chol_close(L, X, np.tril(L_j), X_j)
+
+
+@pytest.mark.parametrize("n,nr", [(75, 1), (75, 2), (75, 55), (8, 3), (5, 1),
+                                  (1, 2)])
+def test_chol_kernel_order_matches_numpy(n, nr):
+    """The JAX test's SPD systems at the main path's widths and two, and
+    at sizes with 0, 3 and 3 padding rows."""
+    rng = np.random.RandomState(60 + n + nr)
+    A = _chol_spd(rng, 4, n)
+    B = rng.randn(4, n, nr)
+    L, X = chol_kernel_order(A, B)
+    _assert_chol_close(L, X, np.linalg.cholesky(A), np.linalg.solve(A, B))
+    assert np.array_equal(np.triu(L, 1), np.zeros_like(L))
+
+
+@pytest.mark.parametrize("which,nr", [("M", 55), ("A", 1)])
+def test_chol_kernel_order_on_the_humanoid(humanoid, which, nr):
+    """The two systems the dense engine solves: M with 55 right-hand sides
+    and M + Kd dt with one."""
+    spec, st, tables, topo = humanoid
+    rng = np.random.RandomState(70)
+    q0, _ = sp.standing_pose(spec)
+    qpos = np.repeat(q0[None], 4, axis=0)
+    qpos[:, 7:] += rng.uniform(-0.6, 0.6, (4, 69))
+    R = ltdl.crba_packed(st, tables, topo, dyn.kin_state(st, torch.tensor(qpos)))
+    A = ltdl.unpack(topo, R).numpy()
+    if which == "A":
+        A = A + np.eye(75) * rng.uniform(0, 100, (4, 1, 75)) * spec.timestep
+    B = rng.randn(4, 75, nr)
+    L, X = chol_kernel_order(A, B)
+    _assert_chol_close(L, X, np.linalg.cholesky(A), np.linalg.solve(A, B))
+
+
+@pytest.mark.parametrize("nr", [1, 55])
+def test_chol_kernel_order_not_spd_gives_nan(nr):
+    rng = np.random.RandomState(80)
+    A = _chol_spd(rng, 2, 75)
+    A[1, 10, 10] = -1.0
+    _, X = chol_kernel_order(A, rng.randn(2, 75, nr))
+    assert np.isfinite(X[0]).all() and np.isnan(X[1]).any()

@@ -288,11 +288,96 @@ def test_chol_not_spd_gives_nan(spd):
 def test_chol_wrappers_reject_what_the_kernels_do_not_take(spd):
     A, _ = spd
     B = torch.zeros(37, 75, 1, device=A.device)
+    # 722 right-hand sides: the first width past K4a's 227 KB
     for bad in ((A.double(), B.double()), (A[::2], B[::2]),
                 (A, torch.zeros(36, 75, 1, device=A.device)),
-                (A, torch.zeros(37, 75, 100, device=A.device)),
+                (A, torch.zeros(37, 75, 722, device=A.device)),
                 (A.transpose(-1, -2), B), (A, B.cpu())):
         with pytest.raises(ValueError):
             chol_cuda.solve_only(*bad)
     with pytest.raises(ValueError):
         chol_cuda.apply(A[..., :74], B)
+    # K4c keeps its 48 KB
+    with pytest.raises(ValueError):
+        chol_cuda.apply(A, torch.zeros(37, 75, 100, device=A.device))
+
+
+def _chol_gate(X, A, B, plain):
+    """Within CHOL_TOL of the plain float32 version and within the JAX
+    test's allclose(rtol = atol = CHOL_TOL) of float64."""
+    assert float((X - plain).abs().max()) < CHOL_TOL
+    ref = np.linalg.solve(A.double().cpu().numpy(), B.double().cpu().numpy())
+    np.testing.assert_allclose(X.cpu().numpy(), ref, rtol=CHOL_TOL, atol=CHOL_TOL)
+
+
+@pytest.mark.parametrize("n", [1, 3, 2048, 2049])
+def test_chol_kernels_env_counts(spd, n):
+    """One env, three, the main path's 2048 and one more: K4a at R = 1 and
+    55, K4b at 55 (one block per env)."""
+    A37, rng = spd
+    A = A37[torch.as_tensor(rng.randint(0, 37, n), device=A37.device)]
+    for nr in (1, 55):
+        B = torch.tensor(rng.normal(size=(n, 75, nr)), dtype=torch.float32,
+                         device=A.device)
+        key = f"chol_solve_only[R={nr}]"
+        before = native.LAUNCHES[key]
+        X = chol_cuda.solve_only(A, B)
+        torch.cuda.synchronize()
+        assert native.LAUNCHES[key] == before + 1
+        _chol_gate(X, A, B, chol.solve_only(A, B))
+    before = native.LAUNCHES["chol_factor_solve[R=55]"]
+    L, X = chol_cuda.factor_solve(A, B)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["chol_factor_solve[R=55]"] == before + 1
+    L_p, X_p = chol.factor_solve(A, B)
+    assert float((L - L_p).abs().max()) < CHOL_TOL
+    _chol_gate(X, A, B, X_p)
+
+
+@pytest.mark.parametrize("nr", [1, 2, 55, 56, 79, 100])
+def test_chol_kernels_widths(spd, nr):
+    """The main path's widths (1, 55), two, the widths past 55 of one more
+    column and of the objects slice (79), and 100 (past the 48 KB that
+    K4c keeps)."""
+    A, rng = spd
+    B = torch.tensor(rng.normal(size=(37, 75, nr)), dtype=torch.float32,
+                     device=A.device)
+    X = chol_cuda.solve_only(A, B)
+    L, X2 = chol_cuda.factor_solve(A, B)
+    torch.cuda.synchronize()
+    _chol_gate(X, A, B, chol.solve_only(A, B))
+    _chol_gate(X2, A, B, chol.solve_only(A, B))
+    assert float((L - chol.factor(A)).abs().max()) < CHOL_TOL
+
+
+def test_chol_kernels_ignore_the_upper_triangle(spd):
+    """NaN above the diagonal of A changes nothing, bit for bit, and L comes
+    out exactly zero above the diagonal."""
+    A, rng = spd
+    B = torch.tensor(rng.normal(size=(37, 75, 55)), dtype=torch.float32,
+                     device=A.device)
+    A_nan = A + torch.triu(torch.full_like(A, float("nan")), 1)
+    for nr in (1, 55):
+        Bn = B[..., :nr].contiguous()
+        assert torch.equal(chol_cuda.solve_only(A_nan, Bn),
+                           chol_cuda.solve_only(A, Bn))
+    L, X = chol_cuda.factor_solve(A_nan, B)
+    L0, X0 = chol_cuda.factor_solve(A, B)
+    torch.cuda.synchronize()
+    assert torch.equal(L, L0) and torch.equal(X, X0)
+    assert torch.equal(torch.triu(L, 1), torch.zeros_like(L))
+    assert bool((torch.diagonal(L, dim1=-2, dim2=-1) > 0).all())
+
+
+def test_chol_kernels_at_their_shared_memory_limit(spd):
+    """K4a/K4b take 721 right-hand sides of a 75 x 75 system (one env's
+    rows within a block's 227 KB)."""
+    A, rng = spd
+    A = A[:3].contiguous()
+    B = torch.tensor(rng.normal(size=(3, 75, 721)), dtype=torch.float32,
+                     device=A.device)
+    X = chol_cuda.solve_only(A, B)
+    L, X2 = chol_cuda.factor_solve(A, B)
+    torch.cuda.synchronize()
+    _chol_gate(X, A, B, chol.solve_only(A, B))
+    assert torch.equal(X, X2)
