@@ -63,7 +63,7 @@ CHOL_TOL = 5e-3               # tests/test_pallas_chol.py:22-47 (rtol = atol)
 # the objects slice's kernel shapes (ROADMAP queue 1 item 2)
 OBJ_SOLVE_WIDTHS = (49, 79)   # K2: 1 + 3 x 16 (compact_k), 1 + 3 x 26
 OBJ_PSOR_BLOCKS = (24, 36)    # K3: 72 and 108 rows
-SOLVE_RTOL = 1e-4             # K2, K4a on the substep's own systems, / max |x|
+SOLVE_RTOL = 1e-4             # K2, K4a, K4c on the substep's own systems, / max |x|
 PARITY_ATOL = 1e-3            # qpos/qvel after one control step, f32 vs f64
 T0 = time.perf_counter()
 
@@ -191,10 +191,10 @@ def chol_bound(n_env: int, n: int, nr: int, factor: bool, l_out: bool):
 
 
 def check_chol_kernels(dense_model, device) -> tuple[list[dict], list[str]]:
-    """K4a (R = 1 and 55), K4b and K4c against their plain versions and
-    float64, on the JAX test's SPD systems and on one dense substep's own
-    systems (A = M + Kd dt with the stable-PD right-hand side; M with
-    [tau - C, J^T])."""
+    """K4a and K4c (R = 1 and 55) and K4b against their plain versions and
+    float64, on the JAX test's SPD systems, and K4a and K4c on one dense
+    substep's own systems (A = M + Kd dt with the stable-PD right-hand side;
+    M with [tau - C, J^T])."""
     import torch
     from kinpoly_tpu_torch.physics import chol, chol_cuda
 
@@ -252,7 +252,9 @@ def check_chol_kernels(dense_model, device) -> tuple[list[dict], list[str]]:
                     f"{out[-1]['ms']:.4f} ms, cholesky_ex+cholesky_solve "
                     f"{out[-1]['library_pair_ms']:.4f} ms")
 
-    # K4b and K4c: no engine caller; timed on the substep's M at R = 55
+    # K4b and K4c: no engine caller. K4b timed on the substep's M at R = 55;
+    # K4c on the substep's own systems factored by the plain version (M at
+    # R = 55, M + Kd dt at R = 1), held there relative to max |x| as K4a is
     Ms, Bs = sub[55]
     B = torch.randn(N_ENVS, n, 55, generator=gen, device=device)
     L, X = chol_cuda.factor_solve(A, B)
@@ -263,8 +265,6 @@ def check_chol_kernels(dense_model, device) -> tuple[list[dict], list[str]]:
     err_b = max(gate("chol_factor_solve L", L, L_p, L64),
                 gate("chol_factor_solve X", X, X_p,
                      torch.linalg.solve(A.double(), B.double())))
-    err_c = gate("chol_apply", chol_cuda.apply(L_p, B), chol.apply(L_p, B),
-                 torch.cholesky_solve(B.double(), L_p.double()))
     b, by = chol_bound(N_ENVS, n, 55, factor=True, l_out=True)
     out.append(dict(
         name="chol_factor_solve[R=55]", route="cuda",
@@ -277,20 +277,33 @@ def check_chol_kernels(dense_model, device) -> tuple[list[dict], list[str]]:
         library_ms=cuda_ms(lambda: torch.cholesky_solve(
             Bs, torch.linalg.cholesky_ex(Ms)[0]), 20),
         library="torch.linalg.cholesky_ex + torch.cholesky_solve (two calls)"))
-    Ls = chol.factor(Ms)
-    b, by = chol_bound(N_ENVS, n, 55, factor=False, l_out=False)
-    out.append(dict(
-        name="chol_apply[R=55]", route="cuda",
-        source="kinpoly_tpu_torch/csrc/chol.cu",
-        replaces="kinpoly_tpu/physics/pallas_chol.py:197",
-        launches=None, max_abs_err=err_c,
-        ms=cuda_ms(lambda: chol_cuda.apply(Ls, Bs), 50),
-        plain_ms=cuda_ms(lambda: chol.apply(Ls, Bs), 3),
-        bound_ms=b, bound_by=by,
-        library_ms=cuda_ms(lambda: torch.cholesky_solve(Bs, Ls), 20),
-        library="torch.cholesky_solve"))
-    msgs.append(f"factor_solve err {err_b:.3g} {out[-2]['ms']:.4f} ms | "
-                f"apply err {err_c:.3g} {out[-1]['ms']:.4f} ms")
+    msgs.append(f"factor_solve err {err_b:.3g} {out[-1]['ms']:.4f} ms")
+    for nr in (1, 55):
+        name = f"chol_apply[R={nr}]"
+        Bn = B[..., :nr].contiguous()
+        err = gate(name, chol_cuda.apply(L_p, Bn), chol.apply(L_p, Bn),
+                   torch.cholesky_solve(Bn.double(), L_p.double()))
+        As, Bs = sub[nr]
+        Ls = chol.factor(As)
+        Xp = chol.apply(Ls, Bs)
+        rel = float((chol_cuda.apply(Ls, Bs) - Xp).abs().max()
+                    / Xp.abs().max())
+        if not rel < SOLVE_RTOL:
+            fail(f"{name} on the substep's systems: relative err {rel:.3g} "
+                 f">= {SOLVE_RTOL}")
+        b, by = chol_bound(N_ENVS, n, nr, factor=False, l_out=False)
+        out.append(dict(
+            name=name, route="cuda", source="kinpoly_tpu_torch/csrc/chol.cu",
+            replaces="kinpoly_tpu/physics/pallas_chol.py:197",
+            launches=None, max_abs_err=err,
+            ms=cuda_ms(lambda: chol_cuda.apply(Ls, Bs), 50),
+            plain_ms=cuda_ms(lambda: chol.apply(Ls, Bs), 3),
+            bound_ms=b, bound_by=by,
+            library_ms=cuda_ms(lambda: torch.cholesky_solve(Bs, Ls), 20),
+            library="torch.cholesky_solve"))
+        msgs.append(f"{name} err {err:.3g} (substep rel {rel:.3g}) "
+                    f"{out[-1]['ms']:.4f} ms, cholesky_solve "
+                    f"{out[-1]['library_ms']:.4f} ms")
     return out, msgs
 
 

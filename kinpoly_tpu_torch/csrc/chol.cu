@@ -54,8 +54,22 @@
 //   rows of A are not 16-byte aligned); B goes in transposed and X comes
 //   out by 4 x 8 tiles, which hit 32 distinct banks. L (K4b) goes out row
 //   by row with explicit zeros above the diagonal.
-// K4c (chol_apply) is still the first, simple kernel: one 256-thread block
-// per env with a block barrier per column step.
+//
+// K4c design: the same pair of solves with L given instead of factored,
+// on K4a's parts. L's lower triangle is staged as A is (folded rows,
+// identity padding rows, the upper triangle never read) and the pivots
+// are the hardware reciprocals of its diagonal, taken once per env (one
+// per thread, one barrier); no IEEE division. The forward solve L Y = B
+// mirrors the backward one: at R > 1 each thread owns whole right-hand
+// sides and sums each panel's 4 entries over k < j0 (panel_sums, as the
+// factor does) before solving them against the panel's 4 x 4 block of L,
+// with no barrier; at R = 1 one warp splits each panel's sum over the
+// 16-byte chunks of k and a butterfly adds the lanes. backward_rows and
+// backward_vec then run as in K4a. The shared memory is K4a's, the same
+// limit (227 KB: R <= 721 at n = 75), 7 envs per SM at R = 55. Half of
+// the time at R = 55 is the staging and X's store (PERF.md); keeping each
+// right-hand side in registers instead, with only L in shared memory,
+// measured no faster.
 
 #include <cuda_runtime.h>
 
@@ -411,6 +425,32 @@ __device__ __forceinline__ void backward_panel(float4 (&acc)[MS],
     backward_sums<NS>(acc, own, R.base + (R.np - k) * R.SL - 4 - i0, -R.SL, k, R.np);
 }
 
+// The 4 x 4 diagonal blocks of the two solves, for one right-hand side:
+// its panel entries a (their sums over the other panels subtracted), the
+// block's rows 1..3 of L (e1..e3, chunk i0; only their entries below the
+// diagonal are read) and its reciprocal pivots rv. forward_block solves
+// L[i0..i0+3] y = a from the first column, backward_block L^T x = a from
+// the last.
+__device__ __forceinline__ float4 forward_block(float4 a, float4 e1, float4 e2,
+                                                float4 e3, float4 rv) {
+  float4 y;
+  y.x = a.x * rv.x;
+  y.y = fmaf(-e1.x, y.x, a.y) * rv.y;
+  y.z = fmaf(-e2.y, y.y, fmaf(-e2.x, y.x, a.z)) * rv.z;
+  y.w = fmaf(-e3.z, y.z, fmaf(-e3.y, y.y, fmaf(-e3.x, y.x, a.w))) * rv.w;
+  return y;
+}
+
+__device__ __forceinline__ float4 backward_block(float4 a, float4 e1, float4 e2,
+                                                 float4 e3, float4 rv) {
+  float4 x;
+  x.w = a.w * rv.w;
+  x.z = fmaf(-e3.z, x.w, a.z) * rv.z;
+  x.y = fmaf(-e3.y, x.w, fmaf(-e2.y, x.z, a.y)) * rv.y;
+  x.x = fmaf(-e3.x, x.w, fmaf(-e2.x, x.z, fmaf(-e1.x, x.y, a.x))) * rv.x;
+  return x;
+}
+
 // Backward solve L^T x = y for R > 1: thread t owns right-hand-side rows
 // np + t + T m and solves them alone, panel by panel from the last.
 template <int W>
@@ -441,17 +481,9 @@ __device__ __forceinline__ void backward_rows(const Rows& R, const float* rinv,
       const float4 e1 = ld4(e[1]), e2 = ld4(e[2]), e3 = ld4(e[3]);
       const float4 rv = ld4(rinv + i0);
 #pragma unroll
-      for (int m = 0; m < MS; ++m) {
-        if (r0 + t + T * m < nrow) {
-          const float4 a = acc[m];
-          float4 x;
-          x.w = a.w * rv.w;
-          x.z = fmaf(-e3.z, x.w, a.z) * rv.z;
-          x.y = fmaf(-e3.y, x.w, fmaf(-e2.y, x.z, a.y)) * rv.y;
-          x.x = fmaf(-e3.x, x.w, fmaf(-e2.x, x.z, fmaf(-e1.x, x.y, a.x))) * rv.x;
-          st4(own[m] + i0, x);
-        }
-      }
+      for (int m = 0; m < MS; ++m)
+        if (r0 + t + T * m < nrow)
+          st4(own[m] + i0, backward_block(acc[m], e1, e2, e3, rv));
     }
   }
 }
@@ -483,16 +515,24 @@ __device__ __forceinline__ void backward_vec(const Rows& R, const float* rinv,
     const float* e[4];
     quad_rows(R, i0, i0, e);
     const float4 e1 = ld4(e[1]), e2 = ld4(e[2]), e3 = ld4(e[3]);
-    const float4 rv = ld4(rinv + i0);
-    float4 v;
-    v.w = (y.w - s.w) * rv.w;
-    v.z = fmaf(-e3.z, v.w, y.z - s.z) * rv.z;
-    v.y = fmaf(-e3.y, v.w, fmaf(-e2.y, v.z, y.y - s.y)) * rv.y;
-    v.x = fmaf(-e3.x, v.w, fmaf(-e2.x, v.z, fmaf(-e1.x, v.y, y.x - s.x))) * rv.x;
+    const float4 v = backward_block(
+        make_float4(y.x - s.x, y.y - s.y, y.z - s.z, y.w - s.w), e1, e2, e3,
+        ld4(rinv + i0));
     __syncwarp();
     if (lane == 0) st4(x + i0, v);
     __syncwarp();
   }
+}
+
+// X out by tiles of 4 of its rows j by 8 columns c per warp (in shared
+// memory, row np + c and column j, the 32 addresses fall in 32 banks).
+template <int W>
+__device__ __forceinline__ void store_x(const Rows& R, float* __restrict__ x,
+                                        int n, int nr, int t) {
+  const int lane = t % kWarp;
+  const int cw = (t / kWarp) * 8 + (lane >> 2);
+  for (int j = lane & 3; j < n; j += 4)
+    for (int c = cw; c < nr; c += 8 * W) x[j * nr + c] = R.ext[c * R.Se + j];
 }
 
 // One warp: a floor of 16 blocks per SM caps the registers at 128 a
@@ -522,14 +562,8 @@ chol_solve_kernel(const float* __restrict__ A, const float* __restrict__ B,
     backward_rows<W>(R, rinv, nrow, t);
   }
   env_sync<W>();
-  // X out by tiles of 4 of its rows j by 8 columns c per warp (in shared
-  // memory, row np + c and column j, the 32 addresses fall in 32 banks),
-  // then L row by row (K4b)
-  const int lane = t % kWarp;
-  const int cw = (t / kWarp) * 8 + (lane >> 2);
-  float* x = X + env * n * nr;
-  for (int j = lane & 3; j < n; j += 4)
-    for (int c = cw; c < nr; c += 8 * W) x[j * nr + c] = R.ext[c * R.Se + j];
+  // X out, then L row by row (K4b)
+  store_x<W>(R, X + env * n * nr, n, nr, t);
   if (L_out != nullptr) {
     float* l = L_out + env * n * n;
     for (int r = 0; r < n; ++r) {
@@ -541,117 +575,192 @@ chol_solve_kernel(const float* __restrict__ A, const float* __restrict__ B,
   }
 }
 
+// ---------------------------------------------------------------------------
+// K4c
+
+// 1 / d for a given pivot d: the hardware's reciprocal (at most 1 ulp
+// off), without the IEEE division's branch to its slow path. A zero pivot
+// gives an infinity, and X is then not finite, as the plain version's
+// division gives.
+__device__ __forceinline__ float rcp_pivot(float d) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(d));
+  return r;
+}
+
+// The reciprocal pivots of the staged L, one per thread (1 on the padding
+// rows). The caller's barrier follows.
+template <int W>
+__device__ __forceinline__ void pivots(const Rows& R, float* rinv, int t) {
+  for (int j = t; j < R.np; j += W * kWarp) rinv[j] = rcp_pivot(R.at(j, j));
+}
+
+// Forward solve L y = b for R > 1, the mirror of backward_rows: thread t
+// owns right-hand-side rows np + t + T m and solves them alone, panel by
+// panel from the first, summing each panel's 4 entries over k < j0 as the
+// factor does (panel_sums: its own row and the panel's 4 rows of L, read
+// by broadcast), then against the panel's 4 x 4 block of L. No barrier.
+template <int W>
+__device__ __forceinline__ void forward_rows(const Rows& R, const float* rinv,
+                                             int nrow, int t) {
+  constexpr int T = W * kWarp;
+  constexpr int MS = 4 / W;
+  for (int r0 = R.np; r0 < nrow; r0 += T * MS) {
+    RowRef own[MS];
+#pragma unroll
+    for (int m = 0; m < MS; ++m) own[m] = {R.row(min(r0 + t + T * m, nrow - 1)), 1};
+    const int ns = (nrow - r0 + T - 1) / T;
+    for (int j0 = 0; j0 < R.np; j0 += 4) {
+      const RowRef q[4] = {{R.row(j0), R.dir(j0)}, {R.row(j0 + 1), R.dir(j0 + 1)},
+                           {R.row(j0 + 2), R.dir(j0 + 2)}, {R.row(j0 + 3), R.dir(j0 + 3)}};
+      float4 acc[MS];
+#pragma unroll
+      for (int m = 0; m < MS; ++m) acc[m] = ld4(own[m].p + j0);
+      if (ns == 1 || MS == 1) {
+        panel_sums<1>(acc, own, q, j0);
+      } else if (ns == 2 || MS == 2) {
+        panel_sums<(MS > 1 ? 2 : 1)>(acc, own, q, j0);
+      } else if (ns == 3) {
+        panel_sums<(MS > 2 ? 3 : 1)>(acc, own, q, j0);
+      } else {
+        panel_sums<MS>(acc, own, q, j0);
+      }
+      const float4 e1 = ld4(q[1].p + q[1].d * j0), e2 = ld4(q[2].p + q[2].d * j0),
+                   e3 = ld4(q[3].p + q[3].d * j0), rv = ld4(rinv + j0);
+#pragma unroll
+      for (int m = 0; m < MS; ++m)
+        if (r0 + t + T * m < nrow)
+          st4(own[m].p + j0, forward_block(acc[m], e1, e2, e3, rv));
+    }
+  }
+}
+
+// Forward solve for R = 1, one warp: for each panel lane l sums the chunks
+// k = 4 l, 4 l + 128, ... (k < j0) of the panel's 4 rows against y, a
+// butterfly adds the partial sums, and every lane finishes the block; lane
+// 0 stores it.
+__device__ __forceinline__ void forward_vec(const Rows& R, const float* rinv,
+                                            int lane) {
+  float* y = R.ext;
+  for (int j0 = 0; j0 < R.np; j0 += 4) {
+    const RowRef q[4] = {{R.row(j0), R.dir(j0)}, {R.row(j0 + 1), R.dir(j0 + 1)},
+                         {R.row(j0 + 2), R.dir(j0 + 2)}, {R.row(j0 + 3), R.dir(j0 + 3)}};
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int k = 4 * lane; k < j0; k += 4 * kWarp) {
+      const float4 v = ld4(y + k);
+      const float4 q0 = ld4(q[0].p + q[0].d * k), q1 = ld4(q[1].p + q[1].d * k);
+      const float4 q2 = ld4(q[2].p + q[2].d * k), q3 = ld4(q[3].p + q[3].d * k);
+      s.x = fmaf(q0.w, v.w, fmaf(q0.z, v.z, fmaf(q0.y, v.y, fmaf(q0.x, v.x, s.x))));
+      s.y = fmaf(q1.w, v.w, fmaf(q1.z, v.z, fmaf(q1.y, v.y, fmaf(q1.x, v.x, s.y))));
+      s.z = fmaf(q2.w, v.w, fmaf(q2.z, v.z, fmaf(q2.y, v.y, fmaf(q2.x, v.x, s.z))));
+      s.w = fmaf(q3.w, v.w, fmaf(q3.z, v.z, fmaf(q3.y, v.y, fmaf(q3.x, v.x, s.w))));
+    }
+#pragma unroll
+    for (int o = kWarp / 2; o > 0; o /= 2) {
+      s.x += __shfl_xor_sync(0xffffffffu, s.x, o);
+      s.y += __shfl_xor_sync(0xffffffffu, s.y, o);
+      s.z += __shfl_xor_sync(0xffffffffu, s.z, o);
+      s.w += __shfl_xor_sync(0xffffffffu, s.w, o);
+    }
+    const float4 b = ld4(y + j0);
+    const float4 v = forward_block(
+        make_float4(b.x - s.x, b.y - s.y, b.z - s.z, b.w - s.w),
+        ld4(q[1].p + q[1].d * j0), ld4(q[2].p + q[2].d * j0),
+        ld4(q[3].p + q[3].d * j0), ld4(rinv + j0));
+    __syncwarp();
+    if (lane == 0) st4(y + j0, v);
+    __syncwarp();
+  }
+}
+
+// K4c in K4a's layout: L's triangle and B staged as stage() stages A and
+// B, the reciprocal pivots, then the two solves (one warp, W = 1, at
+// R = 1; W = 2 and rows per thread at R > 1).
+template <int W>
+__global__ void __launch_bounds__(W * kWarp, W == 1 ? 16 : 1)
+chol_apply_kernel(const float* __restrict__ Lin, const float* __restrict__ B,
+                  float* __restrict__ X, int n, int nr) {
+  static_assert(W == 1 || W == 2, "one or two warps per env");
+  extern __shared__ float4 smem4[];
+  const Rows R(reinterpret_cast<float*>(smem4), n);
+  const int nrow = R.np + nr;
+  float* rinv = R.ext + nr * R.Se;
+  const int t = threadIdx.x;
+  const size_t env = blockIdx.x;
+  stage<W>(Lin + env * n * n, B + env * n * nr, R, n, nr, t);
+  cp_async_wait();
+  env_sync<W>();
+  pivots<W>(R, rinv, t);
+  env_sync<W>();
+  if (nr == 1) {
+    if (t < kWarp) {
+      forward_vec(R, rinv, t);
+      backward_vec(R, rinv, t);
+    }
+  } else {
+    forward_rows<W>(R, rinv, nrow, t);
+    backward_rows<W>(R, rinv, nrow, t);
+  }
+  env_sync<W>();
+  store_x<W>(R, X + env * n * nr, n, nr, t);
+}
+
+// ---------------------------------------------------------------------------
+// Launches
+
 void allow_large_smem(const void* fn) {
   cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(kMaxSmem));
 }
 
+// One env per block of W warps: K4a (L null), K4b (L written) or, with
+// apply, K4c (A is the given L), all three in the same shared memory.
 template <int W>
-int launch_solve(const float* A, const float* B, float* L, float* X, int n_env,
-                 int n, int nr, void* stream) {
+int launch(const float* A, const float* B, float* L, float* X, int n_env,
+           int n, int nr, bool apply, void* stream) {
   static const bool once = (allow_large_smem(
-      reinterpret_cast<const void*>(chol_solve_kernel<W>)), true);
+      reinterpret_cast<const void*>(chol_solve_kernel<W>)), allow_large_smem(
+      reinterpret_cast<const void*>(chol_apply_kernel<W>)), true);
   (void)once;
   const size_t smem = sizeof(float) * solve_floats(n, nr);
   if (smem > kMaxSmem || n < 1 || nr < 1) return static_cast<int>(cudaErrorInvalidValue);
-  chol_solve_kernel<W><<<n_env, W * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
-      A, B, L, X, n, nr);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (apply) {
+    chol_apply_kernel<W><<<n_env, W * kWarp, smem, st>>>(A, B, X, n, nr);
+  } else {
+    chol_solve_kernel<W><<<n_env, W * kWarp, smem, st>>>(A, B, L, X, n, nr);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// Warps per env: one for a single right-hand side (its backward solve is
-// one warp's), two for more.
-int solve(const float* A, const float* B, float* L, float* X, int n_env, int n,
-          int nr, void* stream) {
-  return nr == 1 ? launch_solve<1>(A, B, L, X, n_env, n, nr, stream)
-                 : launch_solve<2>(A, B, L, X, n_env, n, nr, stream);
-}
-
-// ---------------------------------------------------------------------------
-// K4c: one 256-thread block per env loads L's lower triangle and B into
-// shared memory (n x n with an odd row stride, so column reads hit distinct
-// banks, plus n x R), then runs the forward and backward solves with the
-// (row, column) pairs of each step spread over all threads: two block
-// barriers per column step.
-
-constexpr int kThreads = 256;
-
-__host__ __device__ __forceinline__ int stride_of(int n) { return n | 1; }
-
-__global__ void chol_apply_kernel(const float* __restrict__ Lin,
-                                  const float* __restrict__ B,
-                                  float* __restrict__ X, int n, int nr) {
-  extern __shared__ float smem[];
-  const int ld = stride_of(n);
-  float* W = smem;            // n x ld: L's lower triangle
-  float* Xs = W + n * ld;     // n x nr: B, then Y, then X
-  const int tid = threadIdx.x;
-  const size_t env = blockIdx.x;
-
-  const float* a = Lin + env * n * n;
-  for (int idx = tid; idx < n * n; idx += blockDim.x) {
-    const int i = idx / n;
-    const int k = idx - i * n;
-    if (k <= i) W[i * ld + k] = a[idx];
-  }
-  const float* b = B + env * n * nr;
-  for (int idx = tid; idx < n * nr; idx += blockDim.x) Xs[idx] = b[idx];
-  __syncthreads();
-
-  // forward: L Y = B
-  for (int j = 0; j < n; ++j) {
-    const float ljj = W[j * ld + j];
-    for (int c = tid; c < nr; c += blockDim.x) Xs[j * nr + c] /= ljj;
-    __syncthreads();
-    const int m = (n - 1 - j) * nr;
-    for (int idx = tid; idx < m; idx += blockDim.x) {
-      const int i = j + 1 + idx / nr;
-      const int c = idx % nr;
-      Xs[i * nr + c] -= W[i * ld + j] * Xs[j * nr + c];
-    }
-    __syncthreads();
-  }
-  // backward: L^T X = Y
-  for (int j = n - 1; j >= 0; --j) {
-    const float ljj = W[j * ld + j];
-    for (int c = tid; c < nr; c += blockDim.x) Xs[j * nr + c] /= ljj;
-    __syncthreads();
-    const int m = j * nr;
-    for (int idx = tid; idx < m; idx += blockDim.x) {
-      const int i = idx / nr;
-      const int c = idx % nr;
-      Xs[i * nr + c] -= W[j * ld + i] * Xs[j * nr + c];
-    }
-    __syncthreads();
-  }
-
-  float* x = X + env * n * nr;
-  for (int idx = tid; idx < n * nr; idx += blockDim.x) x[idx] = Xs[idx];
+// Warps per env: one for a single right-hand side (its solves are one
+// warp's), two for more.
+int launch_env(const float* A, const float* B, float* L, float* X, int n_env,
+               int n, int nr, bool apply, void* stream) {
+  return nr == 1 ? launch<1>(A, B, L, X, n_env, n, nr, apply, stream)
+                 : launch<2>(A, B, L, X, n_env, n, nr, apply, stream);
 }
 
 }  // namespace
 
 // Each entry point launches on `stream` and returns cudaGetLastError()
-// (0 = launched). The Python wrapper checks the sizes: n_env >= 1 and the
-// shared memory, for K4a/K4b 4 ((np + R) S + np + 16) bytes (np = n
-// rounded up to 4, S = np or np + 4, whichever has S / 4 odd) within a
-// block's 227 KB, for K4c 4 (n (n | 1) + n R) bytes within the 48 KB
-// default.
+// (0 = launched), or cudaErrorInvalidValue for a size its kernel does not
+// take. The Python wrapper checks the sizes first: n_env >= 1, and the
+// shared memory within a block's 227 KB: 4 ((np + R) S + np + 16) bytes
+// (np = n rounded up to 4, S = np or np + 4, whichever has S / 4 odd),
+// the same for K4a, K4b and K4c.
 extern "C" int chol_solve_only(const float* A, const float* B, float* X,
                                int n_env, int n, int nr, void* stream) {
-  return solve(A, B, nullptr, X, n_env, n, nr, stream);
+  return launch_env(A, B, nullptr, X, n_env, n, nr, false, stream);
 }
 
 extern "C" int chol_factor_solve(const float* A, const float* B, float* L,
                                  float* X, int n_env, int n, int nr,
                                  void* stream) {
-  return solve(A, B, L, X, n_env, n, nr, stream);
+  return launch_env(A, B, L, X, n_env, n, nr, false, stream);
 }
 
 extern "C" int chol_apply(const float* L, const float* B, float* X,
                           int n_env, int n, int nr, void* stream) {
-  const size_t smem = sizeof(float) * (n * stride_of(n) + n * nr);
-  chol_apply_kernel<<<n_env, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      L, B, X, n, nr);
-  return static_cast<int>(cudaGetLastError());
+  return launch_env(L, B, nullptr, X, n_env, n, nr, true, stream);
 }

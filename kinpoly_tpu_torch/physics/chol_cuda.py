@@ -14,29 +14,21 @@ from kinpoly_tpu_torch import native
 from kinpoly_tpu_torch.physics import chol
 
 SMEM_MAX = 232448            # a block's most on sm_90 (227 KB)
-APPLY_SMEM_MAX = 48 * 1024   # K4c: the default limit, which it keeps
 
 
 def solve_smem_bytes(n: int, nr: int) -> int:
-    """Shared memory of one env (one block) of K4a/K4b, in the kernel's
+    """Shared memory of one env (one block) of K4a, K4b and K4c, in their
     layout (``csrc/chol.cu``): with np = n rounded up to 4, the np rows of
-    A folded in pairs into np / 2 rows of stride SL, the R right-hand-side
-    rows of stride Se, then the np reciprocal pivots and the 4 x 4 diagonal
-    block; SL >= np + 4 and Se >= np are the first multiples of 4 with an
-    odd number of 16-byte chunks."""
+    A (or L) folded in pairs into np / 2 rows of stride SL, the R
+    right-hand-side rows of stride Se, then the np reciprocal pivots and
+    the 4 x 4 diagonal block; SL >= np + 4 and Se >= np are the first
+    multiples of 4 with an odd number of 16-byte chunks."""
     odd_quads = lambda x: x if (x // 4) % 2 == 1 else x + 4
     np_ = (n + 3) // 4 * 4
     return 4 * (np_ // 2 * odd_quads(np_ + 4) + nr * odd_quads(np_) + np_ + 16)
 
 
-def apply_smem_bytes(n: int, nr: int) -> int:
-    """Shared memory of one env of K4c: L at the odd stride n | 1, and B."""
-    return 4 * (n * (n | 1) + n * nr)
-
-
-def _check(name: str, A: torch.Tensor, B: torch.Tensor,
-           smem_bytes=solve_smem_bytes, smem_max: int = SMEM_MAX
-           ) -> tuple[int, int, int]:
+def _check(name: str, A: torch.Tensor, B: torch.Tensor) -> tuple[int, int, int]:
     """(envs, n, R) after checking what the kernel takes."""
     for x in (A, B):
         if x.device.type != "cuda" or x.device != A.device:
@@ -51,7 +43,7 @@ def _check(name: str, A: torch.Tensor, B: torch.Tensor,
         raise ValueError(f"{name}: expected A (..., n, n) and B (..., n, R), "
                          f"got {tuple(A.shape)} and {tuple(B.shape)}")
     nr = B.shape[-1]
-    if n < 1 or nr < 1 or smem_bytes(n, nr) > smem_max:
+    if n < 1 or nr < 1 or solve_smem_bytes(n, nr) > SMEM_MAX:
         raise ValueError(f"{name}: n = {n} with {nr} right-hand sides exceeds "
                          f"the kernel's shared memory")
     return A.numel() // (n * n), n, nr
@@ -95,8 +87,7 @@ def apply(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """X = (L L^T)^-1 B for a lower factor L (kernel K4c)."""
     if L.device.type == "cpu" and B.device.type == "cpu":
         return chol.apply(L, B)
-    n_env, n, nr = _check("chol_apply", L, B, apply_smem_bytes,
-                              APPLY_SMEM_MAX)
+    n_env, n, nr = _check("chol_apply", L, B)
     X = torch.empty_like(B)
     if n_env == 0:
         return X

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the kernels K1-K3, K4a and K4b on the card, three ways.
+"""Time the kernels K1-K3 and K4a-c on the card, three ways.
 
-    python kinpoly_tpu_torch/scripts/bench_kernels.py [--root DIR] [--envs N]
+    python kinpoly_tpu_torch/scripts/bench_kernels.py [--root DIR] [--envs N] [--only NAME]
 
 ``--root`` is the checkout whose ``kinpoly_tpu_torch`` and ``chip_smoke.py``
 are timed (default: the one holding this script), so two versions can be
@@ -9,7 +9,8 @@ compared in one call on one card. The inputs are those of one captured
 substep of N envs (default 2048, the main path's kernel shapes) in each
 solver configuration, as ``chip_smoke.py`` builds them: K1-K3 from the
 LTDL substep, K4a (R = 55 and 1) and K4b (R = 55, on K4a's inputs) from
-the dense one. For each kernel it prints one JSON line:
+the dense one, and K4c (R = 55 and 1) on K4a's inputs with the systems
+factored by the plain version. For each kernel it prints one JSON line:
 
 - ``wrapper_ms``: CUDA events around a run of eager wrapper calls, as
   ``chip_smoke.py`` times them: what a Python caller pays, the host's
@@ -35,6 +36,8 @@ def main() -> None:
         os.path.dirname(os.path.abspath(__file__)))))
     ap.add_argument("--envs", type=int, default=2048)
     ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--only", default="",
+                    help="time only the kernels whose name starts with this")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -49,7 +52,7 @@ def main() -> None:
     from kinpoly_tpu_torch.anim.spec import synthetic_spec
     from kinpoly_tpu_torch.config.defaults import uhc_control_params
     from kinpoly_tpu_torch.physics import engine as eng
-    from kinpoly_tpu_torch.physics import chol_cuda, ltdl_cuda, pgs_cuda
+    from kinpoly_tpu_torch.physics import chol, chol_cuda, ltdl_cuda, pgs_cuda
     if not os.path.abspath(kinpoly_tpu_torch.__file__).startswith(root + os.sep):
         sys.exit(f"bench_kernels: imported {kinpoly_tpu_torch.__file__}, "
                  f"not from {root}")
@@ -74,10 +77,14 @@ def main() -> None:
                             use_pallas_chol=True)
     dense_calls = chip_smoke.capture_substep(dense, args.envs, 0)
     spd = {a[1].shape[-1]: a[:2] for a, _ in dense_calls["chol"]}
+    # K4c: the same systems factored by the plain version
+    fac = {nr: (chol.factor(a), b) for nr, (a, b) in spd.items()}
     fns.update({
         "chol_solve_only[R=55]": lambda: chol_cuda.solve_only(*spd[55]),
         "chol_solve_only[R=1]": lambda: chol_cuda.solve_only(*spd[1]),
         "chol_factor_solve[R=55]": lambda: chol_cuda.factor_solve(*spd[55]),
+        "chol_apply[R=55]": lambda: chol_cuda.apply(*fac[55]),
+        "chol_apply[R=1]": lambda: chol_cuda.apply(*fac[1]),
     })
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -118,6 +125,8 @@ def main() -> None:
         return float(np.mean(times)) / 1e3 if times else None
 
     for name, fn in fns.items():
+        if not name.startswith(args.only):
+            continue
         print(json.dumps(dict(
             name=name, root=root, envs=args.envs,
             wrapper_ms=events_ms(fn, args.reps),

@@ -1,6 +1,6 @@
 """The order of operations of the CUDA kernels K1 (LTDL factor), K2 (LTDL
-solve), K3 (block PSOR) and K4a/K4b (dense Cholesky solve), emulated on the
-CPU.
+solve), K3 (block PSOR), K4a/K4b (dense Cholesky solve) and K4c (solve
+with a given factor), emulated on the CPU.
 
 The kernels run only on the card, where ``chip_smoke.py`` and
 ``tests/test_torch_kernels_cuda.py`` hold them to their plain versions.
@@ -15,7 +15,9 @@ K4a/K4b factor [A | B]^T (the right-hand sides as extra rows, so the
 forward solve comes with the factor) left-looking in panels of 4 columns,
 each panel's 4 x 4 pivot block by reciprocal square roots, then solve
 L^T X = Y panel by panel from the last; with one right-hand side the
-lanes of a warp split each panel's sum.
+lanes of a warp split each panel's sum. K4c stages a given L as K4a
+stages A, multiplies by the reciprocals of its diagonal, and runs the
+forward solve as the mirror of that backward solve.
 """
 
 import functools
@@ -477,6 +479,27 @@ def chol_kernel_order(A, B):
             L[:, c0, c0 + 1:] = 0.0
         E[:, j0:, j0:j0 + 4] = L
         rinv[:, j0:j0 + 4] = np.stack([rv0, rv1, rv2, rv3], -1)
+    _backward_order(E, rinv, npd)
+    return np.where(low, E[:, :n, :n], 0.0), np.swapaxes(E[:, npd:, :n], 1, 2)
+
+
+def _butterfly(part):
+    """The warp's xor butterfly (16, 8, 4, 2, 1) over the lanes of part
+    (N, 32, 4); every lane ends with the same sums, lane 0's returned."""
+    for o in (16, 8, 4, 2, 1):
+        part = part + part[:, np.arange(32) ^ o]
+    return part[:, 0]
+
+
+def _backward_order(E, rinv, npd):
+    """L^T X = Y in place on the right-hand-side rows E[:, npd:] (rows of
+    L in E[:, :npd], reciprocal pivots rinv), panel by panel from the last:
+    with R > 1 each right-hand side sums its panel entries over k > i0 + 3
+    in ascending k; with R = 1 lane l of a warp sums k = i0 + 4 + l, + 32,
+    ... and a butterfly adds the lanes. Then the block, from its last
+    column."""
+    N, nr = E.shape[0], E.shape[1] - npd
+    col = lambda v: v[:, None]
     for i0 in range(npd - 4, -1, -4):
         e = E[:, i0:i0 + 4, i0:i0 + 4]
         rv = rinv[:, i0:i0 + 4]
@@ -485,9 +508,7 @@ def chol_kernel_order(A, B):
             part = np.zeros((N, 32, 4))
             for idx, k in enumerate(range(i0 + 4, npd)):
                 part[:, idx % 32] += E[:, k, i0:i0 + 4] * x[:, k, None]
-            for o in (16, 8, 4, 2, 1):
-                part = part + part[:, np.arange(32) ^ o]
-            acc = (x[:, i0:i0 + 4] - part[:, 0])[:, None]
+            acc = (x[:, i0:i0 + 4] - _butterfly(part))[:, None]
         else:
             acc = E[:, npd:, i0:i0 + 4].copy()
             for k in range(i0 + 4, npd):
@@ -498,7 +519,6 @@ def chol_kernel_order(A, B):
         x0 = (acc[..., 0] - col(e[:, 1, 0]) * x1 - col(e[:, 2, 0]) * x2
               - col(e[:, 3, 0]) * x3) * col(rv[:, 0])
         E[:, npd:, i0:i0 + 4] = np.stack([x0, x1, x2, x3], -1)
-    return np.where(low, E[:, :n, :n], 0.0), np.swapaxes(E[:, npd:, :n], 1, 2)
 
 
 def _chol_spd(rng, batch, n):
@@ -567,3 +587,128 @@ def test_chol_kernel_order_not_spd_gives_nan(nr):
     A[1, 10, 10] = -1.0
     _, X = chol_kernel_order(A, rng.randn(2, 75, nr))
     assert np.isfinite(X[0]).all() and np.isnan(X[1]).any()
+
+
+# --- K4c ----------------------------------------------------------------------
+
+def apply_kernel_order(L, B):
+    """K4c's order on float64 numpy inputs; returns X = (L L^T)^-1 B. L's
+    lower triangle and B are staged as K4a stages A and B (rows padded to
+    np = n rounded up to 4 with an identity block, the right-hand sides as
+    extra rows with zeros in their padding columns, the upper triangle never
+    read: it enters as NaN); the pivots are the reciprocals of L's
+    diagonal, taken once. The forward solve L Y = B goes panel by panel
+    from the first: with R > 1 each right-hand side sums its 4 panel
+    entries over k < j0 in ascending k; with R = 1 lane l of a warp sums
+    the chunks k = 4 l .. 4 l + 3, + 128, ... in order and a butterfly adds
+    the lanes. Then the 4 x 4 block from its first column, and the backward
+    solve as K4a's."""
+    L = np.asarray(L, np.float64)
+    B = np.asarray(B, np.float64)
+    N, n, nr = L.shape[0], L.shape[-1], B.shape[-1]
+    npd = (n + 3) // 4 * 4
+    low = np.tril(np.ones((n, n), bool))
+    E = np.full((N, npd + nr, npd), np.nan)
+    E[:, :n, :n] = np.where(low, L, np.nan)
+    E[:, n:npd, :] = 0.0
+    for r in range(n, npd):
+        E[:, r, r] = 1.0
+    E[:, npd:, :n] = np.swapaxes(B, 1, 2)
+    E[:, npd:, n:] = 0.0
+    with np.errstate(divide="ignore"):
+        rinv = 1.0 / np.diagonal(E[:, :npd], axis1=1, axis2=2)
+    col = lambda v: v[:, None]
+    for j0 in range(0, npd, 4):
+        d = E[:, j0:j0 + 4, j0:j0 + 4]
+        rv = rinv[:, j0:j0 + 4]
+        if nr == 1:
+            y = E[:, npd]
+            part = np.zeros((N, 32, 4))
+            for k in range(0, j0, 4):
+                for c in range(4):
+                    for t in range(4):
+                        part[:, k // 4 % 32, c] += E[:, j0 + c, k + t] * y[:, k + t]
+            acc = (y[:, j0:j0 + 4] - _butterfly(part))[:, None]
+        else:
+            acc = E[:, npd:, j0:j0 + 4].copy()
+            for k in range(j0):
+                acc -= E[:, npd:, k, None] * E[:, None, j0:j0 + 4, k]
+        y0 = acc[..., 0] * col(rv[:, 0])
+        y1 = (acc[..., 1] - col(d[:, 1, 0]) * y0) * col(rv[:, 1])
+        y2 = (acc[..., 2] - col(d[:, 2, 0]) * y0 - col(d[:, 2, 1]) * y1) * col(rv[:, 2])
+        y3 = (acc[..., 3] - col(d[:, 3, 0]) * y0 - col(d[:, 3, 1]) * y1
+              - col(d[:, 3, 2]) * y2) * col(rv[:, 3])
+        E[:, npd:, j0:j0 + 4] = np.stack([y0, y1, y2, y3], -1)
+    _backward_order(E, rinv, npd)
+    return np.swapaxes(E[:, npd:, :n], 1, 2)
+
+
+def _assert_apply_close(X, X_ref):
+    assert float(np.abs(X - X_ref).max()) <= CHOL_RTOL * float(np.abs(X_ref).max())
+
+
+@pytest.mark.parametrize("nr", [1, 3, 55])
+def test_apply_kernel_order_matches_pallas(nr):
+    """Against JAX chol_apply in interpret mode, in float64, with L from
+    JAX chol_factor_solve."""
+    rng = np.random.RandomState(100 + nr)
+    A = _chol_spd(rng, 3, 75)
+    B = rng.randn(3, 75, nr)
+    L_j, _ = jchol.chol_factor_solve(A, B, interpret=True)
+    L_j = np.asarray(L_j)
+    X_j = np.asarray(jchol.chol_apply(L_j, B, interpret=True))
+    assert X_j.dtype == np.float64
+    _assert_apply_close(apply_kernel_order(L_j, B), X_j)
+
+
+@pytest.mark.parametrize("n,nr", [(75, 1), (75, 2), (75, 55), (8, 3), (5, 1),
+                                  (1, 2)])
+def test_apply_kernel_order_matches_numpy(n, nr):
+    """The JAX test's SPD systems factored by numpy, at the main path's
+    widths and two, and at sizes with 0, 3 and 3 padding rows."""
+    rng = np.random.RandomState(110 + n + nr)
+    A = _chol_spd(rng, 4, n)
+    B = rng.randn(4, n, nr)
+    _assert_apply_close(apply_kernel_order(np.linalg.cholesky(A), B),
+                        np.linalg.solve(A, B))
+
+
+@pytest.mark.parametrize("which,nr", [("M", 55), ("A", 1)])
+def test_apply_kernel_order_on_the_humanoid(humanoid, which, nr):
+    """The dense engine's two systems, factored: M with 55 right-hand sides
+    and M + Kd dt with one."""
+    spec, st, tables, topo = humanoid
+    rng = np.random.RandomState(120)
+    q0, _ = sp.standing_pose(spec)
+    qpos = np.repeat(q0[None], 4, axis=0)
+    qpos[:, 7:] += rng.uniform(-0.6, 0.6, (4, 69))
+    R = ltdl.crba_packed(st, tables, topo, dyn.kin_state(st, torch.tensor(qpos)))
+    A = ltdl.unpack(topo, R).numpy()
+    if which == "A":
+        A = A + np.eye(75) * rng.uniform(0, 100, (4, 1, 75)) * spec.timestep
+    B = rng.randn(4, 75, nr)
+    _assert_apply_close(apply_kernel_order(np.linalg.cholesky(A), B),
+                        np.linalg.solve(A, B))
+
+
+@pytest.mark.parametrize("nr", [1, 55])
+def test_apply_kernel_order_zero_pivot_is_not_finite(nr):
+    """A zero on L's diagonal gives non-finite X in that env only."""
+    rng = np.random.RandomState(130)
+    L = np.linalg.cholesky(_chol_spd(rng, 2, 75))
+    L[1, 10, 10] = 0.0
+    with np.errstate(invalid="ignore"):
+        X = apply_kernel_order(L, rng.randn(2, 75, nr))
+    assert np.isfinite(X[0]).all() and not np.isfinite(X[1]).all()
+
+
+def test_apply_kernel_order_ignores_the_upper_triangle():
+    """NaN above L's diagonal changes nothing, bit for bit."""
+    rng = np.random.RandomState(140)
+    L = np.linalg.cholesky(_chol_spd(rng, 2, 75))
+    B = rng.randn(2, 75, 55)
+    L_nan = L + np.triu(np.full((75, 75), np.nan), 1)
+    for nr in (1, 55):
+        X = apply_kernel_order(L_nan, B[..., :nr])
+        assert np.isfinite(X).all()
+        assert np.array_equal(X, apply_kernel_order(L, B[..., :nr]))

@@ -297,9 +297,12 @@ def test_chol_wrappers_reject_what_the_kernels_do_not_take(spd):
             chol_cuda.solve_only(*bad)
     with pytest.raises(ValueError):
         chol_cuda.apply(A[..., :74], B)
-    # K4c keeps its 48 KB
+    # K4c's limit is K4a's, the real 227 KB: R = 100 is taken (past the
+    # default 48 KB), and 722, the first width past 227 KB, is refused
+    assert chol_cuda.solve_smem_bytes(75, 100) <= chol_cuda.SMEM_MAX
+    assert chol_cuda.solve_smem_bytes(75, 721) <= chol_cuda.SMEM_MAX
     with pytest.raises(ValueError):
-        chol_cuda.apply(A, torch.zeros(37, 75, 100, device=A.device))
+        chol_cuda.apply(A, torch.zeros(37, 75, 722, device=A.device))
 
 
 def _chol_gate(X, A, B, plain):
@@ -312,8 +315,8 @@ def _chol_gate(X, A, B, plain):
 
 @pytest.mark.parametrize("n", [1, 3, 2048, 2049])
 def test_chol_kernels_env_counts(spd, n):
-    """One env, three, the main path's 2048 and one more: K4a at R = 1 and
-    55, K4b at 55 (one block per env)."""
+    """One env, three, the main path's 2048 and one more: K4a and K4c at
+    R = 1 and 55, K4b at 55 (one block per env)."""
     A37, rng = spd
     A = A37[torch.as_tensor(rng.randint(0, 37, n), device=A37.device)]
     for nr in (1, 55):
@@ -325,6 +328,13 @@ def test_chol_kernels_env_counts(spd, n):
         torch.cuda.synchronize()
         assert native.LAUNCHES[key] == before + 1
         _chol_gate(X, A, B, chol.solve_only(A, B))
+        L = chol.factor(A)
+        key = f"chol_apply[R={nr}]"
+        before = native.LAUNCHES[key]
+        X = chol_cuda.apply(L, B)
+        torch.cuda.synchronize()
+        assert native.LAUNCHES[key] == before + 1
+        _chol_gate(X, A, B, chol.apply(L, B))
     before = native.LAUNCHES["chol_factor_solve[R=55]"]
     L, X = chol_cuda.factor_solve(A, B)
     torch.cuda.synchronize()
@@ -337,22 +347,42 @@ def test_chol_kernels_env_counts(spd, n):
 @pytest.mark.parametrize("nr", [1, 2, 55, 56, 79, 100])
 def test_chol_kernels_widths(spd, nr):
     """The main path's widths (1, 55), two, the widths past 55 of one more
-    column and of the objects slice (79), and 100 (past the 48 KB that
-    K4c keeps)."""
+    column and of the objects slice (79), and 100 (past the default 48 KB
+    of shared memory); K4c on the plain version's factor."""
     A, rng = spd
     B = torch.tensor(rng.normal(size=(37, 75, nr)), dtype=torch.float32,
                      device=A.device)
     X = chol_cuda.solve_only(A, B)
     L, X2 = chol_cuda.factor_solve(A, B)
+    L_p = chol.factor(A)
+    X3 = chol_cuda.apply(L_p, B)
     torch.cuda.synchronize()
     _chol_gate(X, A, B, chol.solve_only(A, B))
     _chol_gate(X2, A, B, chol.solve_only(A, B))
-    assert float((L - chol.factor(A)).abs().max()) < CHOL_TOL
+    assert float((L - L_p).abs().max()) < CHOL_TOL
+    _chol_gate(X3, A, B, chol.apply(L_p, B))
+
+
+@pytest.mark.parametrize("n", [1, 5, 8, 40, 72, 73, 74, 76])
+def test_chol_apply_other_sizes(cuda, n):
+    """K4c at other sizes, with 0-3 padding rows and folds of other
+    lengths, at R = 1, 2 and 55."""
+    rng = np.random.RandomState(90 + n)
+    J = rng.randn(3, n, n + 8)
+    A64 = J @ np.swapaxes(J, -1, -2) + np.eye(n) * (n * 0.1)
+    A = torch.tensor(A64, dtype=torch.float32, device=cuda)
+    L = chol.factor(A)
+    for nr in (1, 2, 55):
+        B = torch.tensor(rng.normal(size=(3, n, nr)), dtype=torch.float32,
+                         device=cuda)
+        X = chol_cuda.apply(L, B)
+        torch.cuda.synchronize()
+        _chol_gate(X, A, B, chol.apply(L, B))
 
 
 def test_chol_kernels_ignore_the_upper_triangle(spd):
-    """NaN above the diagonal of A changes nothing, bit for bit, and L comes
-    out exactly zero above the diagonal."""
+    """NaN above the diagonal of A (or of L, for K4c) changes nothing, bit
+    for bit, and L comes out exactly zero above the diagonal."""
     A, rng = spd
     B = torch.tensor(rng.normal(size=(37, 75, 55)), dtype=torch.float32,
                      device=A.device)
@@ -367,17 +397,38 @@ def test_chol_kernels_ignore_the_upper_triangle(spd):
     assert torch.equal(L, L0) and torch.equal(X, X0)
     assert torch.equal(torch.triu(L, 1), torch.zeros_like(L))
     assert bool((torch.diagonal(L, dim1=-2, dim2=-1) > 0).all())
+    L_nan = L + torch.triu(torch.full_like(L, float("nan")), 1)
+    for nr in (1, 55):
+        Bn = B[..., :nr].contiguous()
+        X_nan = chol_cuda.apply(L_nan, Bn)
+        assert torch.isfinite(X_nan).all()
+        assert torch.equal(X_nan, chol_cuda.apply(L, Bn))
+
+
+def test_chol_apply_zero_pivot_gives_non_finite(spd):
+    """A zero on L's diagonal gives non-finite X in that env only, as the
+    plain version's division does."""
+    A, _ = spd
+    L = chol.factor(A[:2])
+    L[1, 10, 10] = 0.0
+    for nr in (1, 55):
+        B = torch.ones(2, 75, nr, device=A.device)
+        X = chol_cuda.apply(L, B)
+        assert torch.isfinite(X[0]).all() and not torch.isfinite(X[1]).all()
+        assert not torch.isfinite(chol.apply(L, B)[1]).all()
 
 
 def test_chol_kernels_at_their_shared_memory_limit(spd):
-    """K4a/K4b take 721 right-hand sides of a 75 x 75 system (one env's
-    rows within a block's 227 KB)."""
+    """K4a, K4b and K4c take 721 right-hand sides of a 75 x 75 system (one
+    env's rows within a block's 227 KB)."""
     A, rng = spd
     A = A[:3].contiguous()
     B = torch.tensor(rng.normal(size=(3, 75, 721)), dtype=torch.float32,
                      device=A.device)
     X = chol_cuda.solve_only(A, B)
     L, X2 = chol_cuda.factor_solve(A, B)
+    X3 = chol_cuda.apply(L, B)
     torch.cuda.synchronize()
     _chol_gate(X, A, B, chol.solve_only(A, B))
     assert torch.equal(X, X2)
+    _chol_gate(X3, A, B, chol.apply(L, B))
