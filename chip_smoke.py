@@ -14,24 +14,39 @@ Phases, one line each with its seconds:
               version, bound and the nearest PyTorch call; K2 and K3 also
               at the objects slice's shapes (R = 49, 79; C = 72, 108)
   4. slice    loads the trained UHC checkpoint iter_13000.p and evaluates
-              it for 60 control steps on 24 seeded clips of 120 frames (one
-              env per clip) through the kernels, with the launch counters
-              set to 0 just before and read just after; every state must
-              be finite
+              it for 60 control steps on the 24 takes of 150 frames of the
+              real bank data_bank/clips24.pkl (read by the port's bank
+              reader; one env per take) through the kernels, with the
+              launch counters set to 0 just before and read just after;
+              every state must be finite; then tracks the takes for 60
+              steps with mean actions and prints the mean pose metrics of
+              the tracked frames, every one finite
   5. parity   one control step of 4 envs on the card (float32, kernels)
               against the plain path on the CPU (float64)
-  6. train    UHC training at uhc.yml's widths and 1024 envs, depth cut to
-              8 control steps: 2 iterations of train_epoch (rollout, norm,
-              GAE, PPO) through the LTDL kernels, launches counted as in 4;
-              losses, rewards and states finite, the policy moved, and a
-              saved checkpoint reloads to bit-identical outputs; prints
-              the LTDL kernel ms per control step (launches x ms at 2048
-              envs, summed over K1-K3)
-  7. dense    one iteration of the same training with the dense Cholesky
-              configuration (kernel K4a), launches counted; then one
-              control step of 4 envs on the card against the CPU float64
-              plain dense path; prints the dense kernel ms per control
-              step (launches x ms at 2048 envs, summed over K4a and K3)
+  6. quatv2   one env step of 8 envs on seeded clips under the uhc_quatv2
+              config, card against CPU as in 5, and its reward (quat_v2)
+              and reward components (clips24's first frames sink into the
+              synthetic humanoid's floor, where float32 and float64 part
+              ways within one step)
+  7. train    UHC training at uhc.yml's widths and 1024 envs, depth cut to
+              8 control steps, on clips24 with the hard start states of
+              data_bank/hard_states_getup.pkl (reactive_v 2): 2 iterations
+              of train_epoch (rollout, norm, GAE, PPO) through the LTDL
+              kernels, launches counted as in 4, the metrics stream written
+              to a temporary directory and read back (one line per
+              iteration); losses, rewards and states finite, the policy
+              moved, and a saved checkpoint reloads to bit-identical
+              outputs; prints the LTDL kernel ms per control step (launches
+              x ms at 2048 envs, summed over K1-K3)
+  8. dense    one iteration of the same training on 24 seeded clips with
+              the dense Cholesky configuration (kernel K4a), launches
+              counted; then one control step of 4 envs on the card against
+              the CPU float64 plain dense path; prints the dense kernel ms
+              per control step (launches x ms at 2048 envs, summed over K4a
+              and K3)
+  9. states   gen_states: one round of 64 envs x 8 control steps of the
+              trained policy on clips24 into a temporary bank, read back
+              through the bank reader
 Then a JSON line with every kernel's numbers, the card's nvidia-smi line,
 and as the last line {"ok": true, "device": {...}}. Any failure exits
 non-zero before that line; a watchdog ends the run past 10 minutes.
@@ -51,7 +66,11 @@ import numpy as np
 
 WATCHDOG_S = 600
 N_ENVS = 2048                 # kernel checks: envs of the captured substep
-SLICE_CLIPS, SLICE_FRAMES, SLICE_STEPS = 24, 120, 60
+CLIPS24 = os.path.join("data_bank", "clips24.pkl")    # 24 takes x 150 frames
+HARD_STATES = os.path.join("data_bank", "hard_states_getup.pkl")
+SLICE_STEPS = 60
+# the dense phase's seeded clips
+DENSE_CLIPS, DENSE_FRAMES = 24, 120
 # training: uhc.yml's n_envs; rollout depth cut from 48 to 8 control steps
 TRAIN_ENVS, TRAIN_STEPS, TRAIN_ITERS = 1024, 8, 2
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
@@ -65,6 +84,9 @@ OBJ_SOLVE_WIDTHS = (49, 79)   # K2: 1 + 3 x 16 (compact_k), 1 + 3 x 26
 OBJ_PSOR_BLOCKS = (24, 36)    # K3: 72 and 108 rows
 SOLVE_RTOL = 1e-4             # K2, K4a, K4c on the substep's own systems, / max |x|
 PARITY_ATOL = 1e-3            # qpos/qvel after one control step, f32 vs f64
+REWARD_ATOL = 1e-4            # reward and its components after that step
+GEN_ENVS, GEN_STEPS = 64, 8   # gen_states: one round
+QUAT_ENVS = 8                 # the uhc_quatv2 env-step parity
 T0 = time.perf_counter()
 
 
@@ -329,18 +351,49 @@ def control_step_parity(card_model, cpu_model, bank_qpos) -> float:
     return max(float((a - b).abs().max()) for a, b in zip(*outs))
 
 
-def run_training(device, iters: int, **model_kw) -> dict:
-    """`iters` train_epoch calls of the uhc.yml agent at TRAIN_ENVS envs and
-    TRAIN_STEPS control steps, through the kernels of the configuration
-    that `model_kw` selects; launch counters set to 0 just before and read
-    just after. Returns the launches, the timings and the agent."""
+def env_step_parity(cfg_name: str, card_model, cpu_model, takes: dict):
+    """One env step of QUAT_ENVS envs under config `cfg_name`, env i on
+    take i, card model against CPU model, from the same seeded action: max
+    abs difference of qpos/qvel, and of the reward and its components."""
+    import torch
+    from kinpoly_tpu_torch.config.defaults import UHCConfig
+    from kinpoly_tpu_torch.envs.humanoid_im import HumanoidImEnv, make_bank
+
+    cfg = UHCConfig.named(cfg_name).env_config()
+    firsts = list(takes.values())[:QUAT_ENVS]
+    action = np.random.RandomState(8).normal(0, 0.2, (QUAT_ENVS, 75))
+    outs = []
+    for m in (card_model, cpu_model):
+        env = HumanoidImEnv(m, cfg, make_bank(m.spec, m, firsts), mode="test")
+        state, _ = env.reset(torch.arange(QUAT_ENVS, device=m.device))
+        state, _, reward, _, info = env.step(state, torch.as_tensor(
+            action, dtype=m.dtype, device=m.device))
+        outs.append([x.double().cpu() for x in
+                     (state.sim.qpos, state.sim.qvel, reward, info.reward_info)])
+    (q1, v1, r1, c1), (q2, v2, r2, c2) = outs
+    return (max(float((q1 - q2).abs().max()), float((v1 - v2).abs().max())),
+            max(float((r1 - r2).abs().max()), float((c1 - c2).abs().max())))
+
+
+def run_training(device, iters: int, takes: dict, hard_states=None,
+                 **model_kw) -> dict:
+    """`iters` iterations of train_uhc's loop for the uhc.yml agent at
+    TRAIN_ENVS envs and TRAIN_STEPS control steps over `takes`, through the
+    kernels of the configuration that `model_kw` selects; launch counters
+    set to 0 just before and read just after; the metrics stream written
+    to a temporary directory and read back. Returns the launches, the
+    timings, the stream's records and the agent."""
     import torch
     from kinpoly_tpu_torch import native
+    from kinpoly_tpu_torch.config.defaults import UHCConfig
     from kinpoly_tpu_torch.rl import ppo
-    from kinpoly_tpu_torch.scripts.train_uhc import build_trainer
+    from kinpoly_tpu_torch.scripts.train_uhc import build_trainer, train
+    from kinpoly_tpu_torch.utils.logger import create_logger
+    from kinpoly_tpu_torch.utils.metrics_log import MetricsLogger
 
-    agent, cfg = build_trainer(TRAIN_ENVS, TRAIN_STEPS, SLICE_CLIPS,
-                               SLICE_FRAMES, seed=0, device=device, **model_kw)
+    cfg = UHCConfig()
+    agent = build_trainer(takes, cfg, TRAIN_ENVS, TRAIN_STEPS, hard_states,
+                          device=device, **model_kw)
     start = [p.detach().clone() for p in agent.policy.parameters()]
     spent = {"rollout": 0.0, "ppo": 0.0}
 
@@ -357,23 +410,26 @@ def run_training(device, iters: int, **model_kw) -> dict:
     rollout, ppo_update = agent._rollout, ppo.ppo_update
     agent._rollout = timed("rollout", rollout)
     ppo.ppo_update = timed("ppo", ppo_update)
-    torch.cuda.synchronize()
-    native.LAUNCHES.clear()
-    t0 = time.perf_counter()
-    try:
-        metrics = [agent.train_epoch(adaptive=cfg.adaptive_params(i))
-                   for i in range(iters)]
-        torch.cuda.synchronize()
-    finally:
-        agent._rollout, ppo.ppo_update = rollout, ppo_update
-    wall = time.perf_counter() - t0
-    launches = dict(native.LAUNCHES)
+    with tempfile.TemporaryDirectory() as tmp:
+        with MetricsLogger(tmp, run_name="uhc_uhc") as mlog:
+            torch.cuda.synchronize()
+            native.LAUNCHES.clear()
+            t0 = time.perf_counter()
+            try:
+                train(agent, cfg, iters, mlog, create_logger())
+                torch.cuda.synchronize()
+            finally:
+                agent._rollout, ppo.ppo_update = rollout, ppo_update
+            wall = time.perf_counter() - t0
+            launches = dict(native.LAUNCHES)
+        with open(mlog.path) as f:
+            metrics = [json.loads(line) for line in f]
     carry = agent._carry
     finite = all(bool(torch.isfinite(x).all()) for x in
                  (carry.obs, carry.env_state.sim.qpos, carry.env_state.sim.qvel))
     for m in metrics:
         vals = [m["policy_loss"], m["value_loss"], m["reward_mean"],
-                m["fail_frac"], *m["reward_components"]]
+                m["fail_frac"]] + [m[f"reward_components/{i}"] for i in range(5)]
         finite = finite and bool(np.isfinite(vals).all())
     moved = max(float((p.detach() - s).abs().max())
                 for p, s in zip(agent.policy.parameters(), start))
@@ -388,18 +444,14 @@ def checkpoint_round_trip(agent) -> bool:
     """save_checkpoint into a temporary directory, load it into fresh nets
     and norm: bit-identical policy outputs on the carried observations."""
     import torch
-    from kinpoly_tpu_torch.models import nets, weights
+    from kinpoly_tpu_torch.models import weights
     from kinpoly_tpu_torch.rl import running_norm as rn
-    from kinpoly_tpu_torch.rl.agent_uhc import OBS_DIM
+    from kinpoly_tpu_torch.rl.agent_uhc import make_policy
 
-    cfg = agent.cfg
     with tempfile.TemporaryDirectory() as tmp:
         ck = weights.load_uhc_checkpoint(
             agent.save_checkpoint(os.path.join(tmp, "iter_smoke.p")))
-    pol = nets.PolicyMCP(OBS_DIM, agent.env.action_dim,
-                         num_primitive=cfg.num_primitive,
-                         hidden=cfg.policy_hsize, activation=cfg.policy_htype,
-                         log_std_init=cfg.log_std, fix_std=cfg.fix_std)
+    pol = make_policy(agent.cfg, agent.obs_dim, agent.env.action_dim)
     pol = pol.to(device=agent.env.model.device, dtype=agent.env.model.dtype)
     pol.load_state_dict(ck["policy"])
     norm = rn.RunningNorm(*(x.to(agent.env.model.device) for x in ck["norm"]))
@@ -437,7 +489,10 @@ def main() -> None:
     from kinpoly_tpu_torch.physics import ltdl, ltdl_cuda, pgs_cuda
     from kinpoly_tpu_torch.anim.spec import synthetic_spec
     from kinpoly_tpu_torch.config.defaults import uhc_control_params
-    from kinpoly_tpu_torch.scripts.eval_uhc import build_agent
+    from kinpoly_tpu_torch.data.banks import load_hard_states, read_bank
+    from kinpoly_tpu_torch.scripts import gen_states
+    from kinpoly_tpu_torch.scripts.eval_uhc import (build_agent, get_takes,
+                                                    mean_row, pose_metric_rows)
 
     device = resolve_device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -604,10 +659,11 @@ def main() -> None:
     kernels += chol_kernels
     say("kernels", f"N={N_ENVS}, dense: " + " | ".join(msgs), tp)
 
-    # 4. the slice: UHC evaluation through the kernels --------------------
+    # 4. the slice: UHC evaluation on the real bank through the kernels ---
     tp = time.perf_counter()
-    agent = build_agent(13000, n_clips=SLICE_CLIPS, n_frames=SLICE_FRAMES,
-                        seed=0, device=device,
+    takes = get_takes(os.path.join(here, CLIPS24))
+    t_max = max(q.shape[0] for q in takes.values())
+    agent = build_agent(13000, takes, device,
                         out_root=os.path.join(here, "results"))
     torch.cuda.synchronize()
     steps = SLICE_STEPS
@@ -621,14 +677,23 @@ def main() -> None:
               "ltdl_solve[R=55]": 15 * steps, "pgs_solve": 15 * steps}
     st = info["state"].sim
     finite = bool(torch.isfinite(st.qpos).all() and torch.isfinite(st.qvel).all())
-    say("slice", f"{SLICE_CLIPS} clips x {steps} control steps: coverage {cov:.4f}, mean "
-        f"tracked {float(np.mean(info['percent'])):.1%}, "
+    say("slice", f"{len(takes)} takes x {t_max} frames of {CLIPS24}, {steps} "
+        f"control steps: coverage {cov:.4f}, mean tracked "
+        f"{float(np.mean(info['percent'])):.1%}, "
         f"{run_s / steps * 1e3:.1f} ms per control step, launches {launches} "
         f"(expected {expect}), finite {finite}", tp)
     if launches != expect:
         fail(f"kernel launches {launches} != {expect}")
-    if not finite or tuple(st.qpos.shape) != (SLICE_CLIPS, 76):
+    if not finite or tuple(st.qpos.shape) != (len(takes), 76):
         fail("non-finite or misshapen state after the evaluation")
+    tp = time.perf_counter()
+    rows = pose_metric_rows(agent, takes, steps)
+    mean = mean_row(rows)
+    say("slice", f"pose metrics of {steps} tracked steps, mean over "
+        f"{len(rows)} takes: " + " ".join(f"{k}:{v:.3f}" for k, v in mean.items()),
+        tp)
+    if not all(np.isfinite(v) for r in rows.values() for v in r.values()):
+        fail(f"non-finite pose metrics: {rows}")
 
     # 5. parity: card (f32, kernels) against the CPU plain path (f64) -----
     tp = time.perf_counter()
@@ -642,16 +707,32 @@ def main() -> None:
         fail(f"card vs CPU parity error {perr:.3g}")
     del agent
 
-    # 6. train: this slice's path, LTDL configuration ---------------------
+    # 6. quatv2: the other UHC config's env step and reward, card vs CPU --
     tp = time.perf_counter()
-    tr = run_training(device, TRAIN_ITERS)
+    qerr, rerr = env_step_parity("uhc_quatv2", model, cpu_model,
+                                 get_takes(None, QUAT_ENVS, 4))
+    say("quatv2", f"one env step of {QUAT_ENVS} envs under uhc_quatv2 "
+        f"(reward quat_v2), card f32 vs CPU f64: state max abs err "
+        f"{qerr:.3g} (tol {PARITY_ATOL}), reward and components {rerr:.3g} "
+        f"(tol {REWARD_ATOL})", tp)
+    if not qerr < PARITY_ATOL:
+        fail(f"uhc_quatv2 card vs CPU state error {qerr:.3g}")
+    if not rerr < REWARD_ATOL:
+        fail(f"uhc_quatv2 card vs CPU reward error {rerr:.3g}")
+
+    # 7. train: this slice's path, LTDL configuration, on the real bank ----
+    tp = time.perf_counter()
+    tr = run_training(device, TRAIN_ITERS, takes,
+                      load_hard_states(os.path.join(here, HARD_STATES)))
     n = tr["steps"]
     expect = {"ltdl_factor": 30 * n, "ltdl_solve[R=1]": 15 * n,
               "ltdl_solve[R=55]": 15 * n, "pgs_solve": 15 * n}
     same = checkpoint_round_trip(tr["agent"])
     m = tr["metrics"][-1]
     say("train", f"{TRAIN_ENVS} envs x {TRAIN_STEPS} steps x {TRAIN_ITERS} "
-        f"iterations: {tr['s_per_iter']:.2f} s per iteration, rollout "
+        f"iterations on {CLIPS24} with {HARD_STATES} (reactive_v 2, "
+        f"{len(tr['metrics'])} metrics lines read back): "
+        f"{tr['s_per_iter']:.2f} s per iteration, rollout "
         f"{tr['ms_per_step']:.1f} ms per control step, PPO update "
         f"{tr['ppo_ms']:.1f} ms; last iteration reward {m['reward_mean']:.4f} "
         f"policy_loss {m['policy_loss']:.4g} value_loss {m['value_loss']:.4g}; "
@@ -660,6 +741,9 @@ def main() -> None:
         f"round trip identical {same}", tp)
     if tr["launches"] != expect:
         fail(f"training launches {tr['launches']} != {expect}")
+    if [m["step"] for m in tr["metrics"]] != list(range(TRAIN_ITERS)):
+        fail(f"metrics stream holds {len(tr['metrics'])} lines, not one per "
+             f"iteration")
     if not tr["finite"]:
         fail("non-finite loss, reward or state in training")
     if not tr["moved"] > 0:
@@ -677,9 +761,10 @@ def main() -> None:
         f"{k_ms:.3f} ms (sum of launches x ms over {n} control steps)", tp)
     del tr
 
-    # 7. dense: the same training through K4a, and its parity ---------------
+    # 8. dense: the same training through K4a, and its parity ---------------
     tp = time.perf_counter()
-    tr = run_training(device, 1, use_pallas_chol=True)
+    tr = run_training(device, 1, get_takes(None, DENSE_CLIPS, DENSE_FRAMES),
+                      use_pallas_chol=True)
     n = tr["steps"]
     expect = {"chol_solve_only[R=1]": 15 * n, "chol_solve_only[R=55]": 15 * n,
               "pgs_solve": 15 * n}
@@ -708,6 +793,24 @@ def main() -> None:
     say("dense", f"dense kernel time per control step at N={N_ENVS}: "
         f"{d_ms:.3f} ms (sum of launches x ms over {n} control steps)", tp)
     del tr
+
+    # 9. states: gen_states on clips24 into a temporary bank ---------------
+    tp = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "hard_states.pkl")
+        gen_states.main([
+            "--data", os.path.join(here, CLIPS24), "--checkpoint",
+            os.path.join(here, "results/motion_im/uhc/models/iter_13000.p"),
+            "--n-envs", str(GEN_ENVS), "--steps", str(GEN_STEPS),
+            "--rounds", "1", "--device", "cuda", "--out", out])
+        hs = read_bank(out)
+    k = hs["qpos"].shape[0]
+    say("states", f"gen_states, {GEN_ENVS} envs x {GEN_STEPS} steps: {k} "
+        f"states written and read back", tp)
+    if (list(hs) != ["qpos", "qvel"] or hs["qpos"].shape != (k, 76)
+            or hs["qvel"].shape != (k, 75) or hs["qpos"].dtype != np.float32
+            or not np.isfinite(hs["qpos"]).all()):
+        fail(f"gen_states bank reads back as {[(x, v.shape, v.dtype) for x, v in hs.items()]}")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)

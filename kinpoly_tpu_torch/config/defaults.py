@@ -1,10 +1,12 @@
-"""UHC configuration: the values of ``kinpoly_tpu/config/yaml/uhc.yml`` as a
-dataclass with the adaptive schedules and the training config derived from
-them (port of ``kinpoly_tpu/config/config.py`` ``UHCConfig``), and the
-per-joint stable-PD table (port of ``kinpoly_tpu/config/defaults.py``).
+"""UHC configuration: the repo's UHC configs (``kinpoly_tpu/config/yaml/
+uhc.yml`` and ``uhc_quatv2.yml``) as a dataclass with the adaptive schedules
+and the training config derived from them (port of
+``kinpoly_tpu/config/config.py`` ``UHCConfig``), and the per-joint
+stable-PD table (port of ``kinpoly_tpu/config/defaults.py``).
 
-The defaults below are copied from the YAML (the port reads no YAML); a test
-holds them against the YAML as the JAX package parses it.
+The defaults below are copied from uhc.yml and ``NAMED_CONFIGS`` holds what
+each other config changes (the port reads no YAML); a test holds each
+against its YAML as the JAX package parses it.
 """
 
 from __future__ import annotations
@@ -79,9 +81,16 @@ _REWARD_WEIGHTS = dict(w_p=0.3, w_v=0.1, w_e=0.45, w_c=0.1, w_vf=0.05,
                        k_p=2.0, k_v=0.005, k_e=5.0, k_c=100.0, k_vf=1.0)
 
 
+# what each named config changes from uhc.yml
+NAMED_CONFIGS = {"uhc": {}, "uhc_quatv2": {"reward_id": "quat_v2"}}
+
+
 @dataclass(frozen=True)
 class UHCConfig:
-    """The UHC training configuration (uhc.yml), field for field."""
+    """A UHC training configuration, field for field, and its ``name``
+    (the YAML's; it names the output directory). ``UHCConfig.named(name)``
+    gives one of ``NAMED_CONFIGS``; ``UHCConfig()`` is uhc.yml."""
+    name: str = "uhc"
     gamma: float = 0.95
     tau: float = 0.95
     policy_htype: str = "relu"
@@ -120,9 +129,21 @@ class UHCConfig:
     n_envs: int = 1024
     rollout_steps: int = 48
 
-    def model_dir(self, out_root: str = "results", cfg_id: str = "uhc") -> str:
-        """Where the trainer writes ``iter_*.p`` checkpoints."""
-        return os.path.join(out_root, "motion_im", cfg_id, "models")
+    @classmethod
+    def named(cls, name: str) -> "UHCConfig":
+        if name not in NAMED_CONFIGS:
+            raise ValueError(f"unknown UHC config {name!r}; available: "
+                             f"{sorted(NAMED_CONFIGS)}")
+        return cls(name=name, **NAMED_CONFIGS[name])
+
+    def out_dir(self, out_root: str = "results") -> str:
+        """The run's directory (``log.txt``)."""
+        return os.path.join(out_root, "motion_im", self.name)
+
+    def model_dir(self, out_root: str = "results") -> str:
+        """Where the trainer writes ``iter_*.p`` checkpoints and its
+        metrics stream."""
+        return os.path.join(self.out_dir(out_root), "models")
 
     # adaptive schedules (reference copycat_config.py:149-166): uhc.yml sets
     # none, so each is the one-point schedule the JAX config defaults to

@@ -1,8 +1,8 @@
 """UHC motion-imitation environment (port of
-``kinpoly_tpu/envs/humanoid_im.py``): observation v1, the
-``world_rfc_implicit`` reward, body-distance termination, the non-finite
-guard, the deterministic (evaluation) and training resets, and the
-fail-safe, over a batch of envs.
+``kinpoly_tpu/envs/humanoid_im.py``): observations v1 and v2, every UHC
+reward but the explicit-RFC ones (``rl/rewards.py``), body-distance, head
+and root-height termination, the non-finite guard, the deterministic
+(evaluation) and training resets, and the fail-safe, over a batch of envs.
 
 Every state tensor has a leading env dim N. The training reset draws from
 the caller's ``torch.Generator``: joint noise (``env_init_noise``), and in
@@ -13,6 +13,7 @@ standing pose (``reactive_v`` 1) or from a hard-state bank (``reactive_v``
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, fields
 from typing import NamedTuple
 
@@ -53,6 +54,18 @@ class EnvConfig:
     k_c: float = 100.0
     k_vf: float = 1.0
     v_ord: int = 2
+    # local_rfc_* root terms
+    w_rp: float = 0.1
+    w_rv: float = 0.1
+    k_rh: float = 300.0
+    k_rq: float = 300.0
+    k_rl: float = 5.0
+    k_ra: float = 0.5
+    # v2/v3 world-quat/jpos terms
+    w_wp: float = 0.4
+    w_j: float = 100.0
+    k_wp: float = 0.4
+    k_j: float = 100.0
 
 
 class TargetFrame(NamedTuple):
@@ -64,10 +77,10 @@ class TargetFrame(NamedTuple):
 
 def full_obs(cfg: EnvConfig, base_rot: torch.Tensor, sim: eng.SimState,
              fk_res: fklib.FKResult, tgt: TargetFrame, include_com: bool):
-    """UHC observation v1 (with the per-body CoM blocks), keeping the
-    reference's quirks the trained policies saw: the linear velocity is
-    turned into the root frame twice, and 'rel_pos' is built from
-    quaternion components."""
+    """UHC observation v1 (with the per-body CoM blocks) or v2 (without),
+    keeping the reference's quirks the trained policies saw: the linear
+    velocity is turned into the root frame twice, and 'rel_pos' is built
+    from quaternion components."""
     qpos, qvel = sim.qpos, sim.qvel
     lead = qpos.shape[:-1]
 
@@ -161,9 +174,8 @@ class HumanoidImEnv:
     def __init__(self, model: eng.PhysicsModel, cfg: EnvConfig,
                  bank: exlib.ExpertClip, neutral_qpos=None, neutral_qvel=None,
                  mode: str = "train", hard_states: tuple | None = None):
-        if cfg.obs_v != 1 or cfg.env_term_body != "body":
-            raise ValueError("the port has observation v1 and body-distance "
-                             "termination only")
+        if cfg.obs_v not in (1, 2):
+            raise ValueError(f"obs_v {cfg.obs_v}")
         self.model = model
         self.cfg = cfg
         self.bank = bank
@@ -180,6 +192,7 @@ class HumanoidImEnv:
         self.base_rot = torch.tensor(cfg.base_rot, dtype=torch.float32).to(
             dtype=dtype, device=device)
         spec = model.spec
+        self.head_idx = spec.body_index("Head")
         self.ee_idx = torch.as_tensor(
             fklib.make_body_index(spec, exlib.EE_NAMES), device=device)
         self.jpos_diffw = torch.as_tensor(body_diff_weights(spec), dtype=dtype,
@@ -195,6 +208,13 @@ class HumanoidImEnv:
     def n_clips(self) -> int:
         return int(self.bank.length.shape[0])
 
+    @functools.cached_property
+    def obs_dim(self) -> int:
+        """Width of the observation (784 for v1, 640 for v2), from one
+        reset of clip 0."""
+        return self.reset(torch.zeros(1, dtype=torch.int64,
+                                      device=self.model.device))[1].shape[-1]
+
     def expert_frame(self, state: EnvState, delta_t: int = 0) -> exlib.ExpertClip:
         return exlib.bank_frame(self.bank, state.clip_idx,
                                 state.start_ind + state.cur_t + delta_t)
@@ -205,24 +225,49 @@ class HumanoidImEnv:
         t = self.expert_frame(state, delta_t=1)
         return full_obs(self.cfg, self.base_rot, state.sim, fk_res,
                         TargetFrame(t.qpos, t.wbpos, t.body_com, t.wbquat),
-                        include_com=True)
+                        include_com=self.cfg.obs_v == 1)
 
     def reward(self, state: EnvState, next_sim: eng.SimState, action,
                fk_res: fklib.FKResult):
         """`state` carries the post-increment time, so the expert frame is
-        the one the step moved to."""
+        the one the step moved to. The local-frame features are built only
+        for the rewards that read them. As in the JAX env, `state.sim` is
+        already `next_sim` here, so the simulated side's finite-difference
+        root velocities (``rlinv``, ``rlinv_local``, ``rangv``) are those of
+        next_sim against itself: zero."""
         e = self.expert_frame(state)
+        dt = self.model.control_dt
+        lead = next_sim.qpos.shape[:-1]
         cur_bquat = fklib.body_quat_sim(next_sim.qpos)
-        inp = rwlib.RewardInputs(
+        kw = dict(
             bquat=cur_bquat,
-            bangvel=tmath.angvel_fd(state.prev_bquat, cur_bquat,
-                                    self.model.control_dt),
-            ee_wpos=exlib.ee_world(fk_res, self.ee_idx),
+            wbquat=fk_res.xquat.reshape(lead + (-1,)),
+            wbpos=fk_res.xpos.reshape(lead + (-1,)),
+            body_com=fk_res.xipos.reshape(lead + (-1,)),
             com=fklib.com(self.model.st, fk_res),
-            e_bquat=e.bquat, e_bangvel=e.bangvel, e_ee_wpos=e.ee_wpos,
-            e_com=e.com, vf=action[..., 69:69 + self.vf_dim],
-            b_diffw=self.b_diffw)
-        return self.reward_fn(inp, self.reward_weights)
+            ee_wpos=exlib.ee_world(fk_res, self.ee_idx),
+            bangvel=tmath.angvel_fd(state.prev_bquat, cur_bquat, dt),
+            head_pose=None,
+            e_bquat=e.bquat, e_wbquat=e.wbquat, e_wbpos=e.wbpos,
+            e_body_com=e.body_com, e_com=e.com, e_ee_wpos=e.ee_wpos,
+            e_bangvel=e.bangvel, vf=action[..., 69:69 + self.vf_dim],
+            b_diffw=self.b_diffw, jpos_diffw=self.jpos_diffw)
+        if rwlib.needs_local(self.cfg.reward_id):
+            cur_qvel = tmath.qvel_fd(state.sim.qpos, next_sim.qpos, dt)
+            kw.update(
+                qpos=next_sim.qpos,
+                rq_rmh=tmath.de_heading(next_sim.qpos[..., 3:7]),
+                rlinv=cur_qvel[..., :3],
+                rlinv_local=tmath.transform_vec(
+                    cur_qvel[..., :3], state.sim.qpos[..., 3:7],
+                    self.cfg.obs_coord),
+                rangv=cur_qvel[..., 3:6],
+                ee_pos=exlib.ee_in_root(fk_res, next_sim.qpos, self.ee_idx,
+                                        self.cfg.obs_coord),
+                e_qpos=e.qpos, e_rq_rmh=e.rq_rmh, e_rlinv=e.rlinv,
+                e_rlinv_local=e.rlinv_local, e_rangv=e.rangv,
+                e_ee_pos=e.ee_pos)
+        return self.reward_fn(rwlib.RewardInputs(**kw), self.reward_weights)
 
     def calc_body_diff(self, state: EnvState, fk_res: fklib.FKResult):
         e = self.expert_frame(state)
@@ -251,7 +296,14 @@ class HumanoidImEnv:
         reward, rinfo = self.reward(mid, next_sim, action, fk_res)
 
         length = self.bank.length[state.clip_idx]
-        fail = (self.calc_body_diff(mid, fk_res) > cfg.body_diff_thresh) | bad
+        if cfg.env_term_body == "body":
+            fail = self.calc_body_diff(mid, fk_res) > cfg.body_diff_thresh
+        elif cfg.env_term_body == "Head":
+            fail = (fk_res.xpos[..., self.head_idx, 2]
+                    < self.bank.head_height_lb[state.clip_idx] - 0.1)
+        else:
+            fail = next_sim.qpos[..., 2] < self.bank.height_lb[state.clip_idx] - 0.1
+        fail = fail | bad
         end = (new_t >= cfg.env_episode_len) | (
             new_t + state.start_ind >= length + cfg.env_expert_trail_steps)
         done = fail | end

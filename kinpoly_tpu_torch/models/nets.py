@@ -1,6 +1,6 @@
 """Core networks (port of ``kinpoly_tpu/models/nets.py``): MLP, value, the
-multiplicative compositional (MCP) policy of UHC, and the diagonal-Gaussian
-log-density.
+diagonal-Gaussian policy, the multiplicative compositional (MCP) policy of
+UHC, and the diagonal-Gaussian log-density.
 
 Layer names follow the flax modules so that ``models/weights.py`` maps a
 flax parameter tree onto these state dicts one to one. Fresh parameters
@@ -55,6 +55,37 @@ class Value(nn.Module):
         return self.head(self.mlp(x))[..., 0]
 
 
+class _StdHead(nn.Module):
+    """The policies' log-std: fixed at ``log_std_init`` with ``fix_std``,
+    else a learnable (action_dim,) parameter ``log_std``."""
+
+    def _init_std(self, action_dim: int, log_std_init: float, fix_std: bool):
+        self.log_std_init = log_std_init
+        self.fix_std = fix_std
+        if not fix_std:
+            self.log_std = nn.Parameter(torch.full((action_dim,), log_std_init))
+
+    def _with_std(self, mean: torch.Tensor):
+        if self.fix_std:
+            return mean, torch.full_like(mean, self.log_std_init)
+        return mean, self.log_std.expand(mean.shape)
+
+
+class PolicyGaussian(_StdHead):
+    """MLP -> mean (UHC's ``actor_type: gauss``)."""
+
+    def __init__(self, in_dim: int, action_dim: int,
+                 hidden: Sequence[int] = (512, 256), activation: str = "relu",
+                 log_std_init: float = -2.3, fix_std: bool = True):
+        super().__init__()
+        self.mlp = MLP(in_dim, hidden, activation)
+        self.head = _linear(tuple(hidden)[-1], action_dim)
+        self._init_std(action_dim, log_std_init, fix_std)
+
+    def forward(self, x):
+        return self._with_std(self.head(self.mlp(x)))
+
+
 class PrimitiveBank(nn.Module):
     """All P primitive MLPs as one batched contraction per layer: weights
     stacked (P, in, out), named w_{out}_{in} / b_{out}_{in} as in flax."""
@@ -85,7 +116,7 @@ class PrimitiveBank(nn.Module):
         return h                                             # (..., P, A)
 
 
-class PolicyMCP(nn.Module):
+class PolicyMCP(_StdHead):
     """P primitive heads mixed by a softmax composer; mean = sum_i w_i mu_i.
     The log-std is fixed with ``fix_std`` (as uhc.yml trains it), else a
     learnable (action_dim,) parameter ``log_std``."""
@@ -100,18 +131,12 @@ class PolicyMCP(nn.Module):
                                   activation)
         self.composer = MLP(in_dim, composer_hidden, activation)
         self.composer_head = _linear(tuple(composer_hidden)[-1], num_primitive)
-        self.log_std_init = log_std_init
-        self.fix_std = fix_std
-        if not fix_std:
-            self.log_std = nn.Parameter(torch.full((action_dim,), log_std_init))
+        self._init_std(action_dim, log_std_init, fix_std)
 
     def forward(self, x):
         prims = self.bank(x)
         w = torch.softmax(self.composer_head(self.composer(x)), dim=-1)
-        mean = torch.einsum("...p,...pa->...a", w, prims)
-        if self.fix_std:
-            return mean, torch.full_like(mean, self.log_std_init)
-        return mean, self.log_std.expand(mean.shape)
+        return self._with_std(torch.einsum("...p,...pa->...a", w, prims))
 
 
 @torch.no_grad()
@@ -129,7 +154,7 @@ def init_flax_(module: nn.Module, generator: torch.Generator) -> nn.Module:
             for out, d in m.shapes:
                 _lecun_normal_(getattr(m, f"w_{out}_{d}"), d, generator)
                 getattr(m, f"b_{out}_{d}").zero_()
-        elif isinstance(m, PolicyMCP) and not m.fix_std:
+        elif isinstance(m, _StdHead) and not m.fix_std:
             m.log_std.fill_(m.log_std_init)
     return module
 

@@ -16,32 +16,21 @@ flax trees (nested dicts of numpy arrays) that the port's trainer saves.
 
 from __future__ import annotations
 
-import importlib
 import pickle
 
 import numpy as np
 import torch
 
+from kinpoly_tpu_torch.data.banks import NUMPY_GLOBALS, numpy_global
 from kinpoly_tpu_torch.rl.running_norm import RunningNorm
-
-_NUMPY_GLOBALS = {
-    ("numpy", "ndarray"), ("numpy", "dtype"),
-    ("numpy._core.multiarray", "_reconstruct"),
-    ("numpy.core.multiarray", "_reconstruct"),
-    ("numpy._core.multiarray", "scalar"), ("numpy.core.multiarray", "scalar"),
-}
 
 
 class _CheckpointUnpickler(pickle.Unpickler):
     def find_class(self, module: str, name: str):
         if (module, name) == ("kinpoly_tpu.rl.running_norm", "RunningNorm"):
             return RunningNorm
-        if (module, name) in _NUMPY_GLOBALS:
-            try:
-                mod = importlib.import_module(module)
-            except ImportError:   # numpy 1.x names numpy._core numpy.core
-                mod = importlib.import_module(module.replace("._core", ".core"))
-            return getattr(mod, name)
+        if (module, name) in NUMPY_GLOBALS:
+            return numpy_global(module, name)
         raise pickle.UnpicklingError(
             f"checkpoint refers to {module}.{name}, which is not allowed")
 
@@ -68,11 +57,15 @@ def _mlp(prefix: str, d: dict) -> dict:
 
 
 def policy_state_dict(params: dict) -> dict:
-    """flax PolicyMCP params -> ``nets.PolicyMCP`` state dict."""
+    """flax PolicyMCP or PolicyGaussian params -> the state dict of
+    ``nets.PolicyMCP`` or ``nets.PolicyGaussian``."""
     p = params["params"]
-    sd = {f"bank.{k}": _t(v) for k, v in p["_PrimitiveBank_0"].items()}
-    sd.update(_mlp("composer", p["MLP_0"]))
-    sd.update(_dense("composer_head", p["Dense_0"]))
+    if "_PrimitiveBank_0" in p:
+        sd = {f"bank.{k}": _t(v) for k, v in p["_PrimitiveBank_0"].items()}
+        sd.update(_mlp("composer", p["MLP_0"]))
+        sd.update(_dense("composer_head", p["Dense_0"]))
+    else:   # the Gaussian policy's layers are the value net's
+        sd = value_state_dict(params)
     if "log_std" in p:
         sd["log_std"] = _t(p["log_std"])
     return sd
@@ -102,11 +95,15 @@ def _flax_mlp(sd: dict, prefix: str) -> dict:
 
 
 def policy_params(sd: dict) -> dict:
-    """``nets.PolicyMCP`` state dict -> flax PolicyMCP params."""
-    p = {"_PrimitiveBank_0": {k[len("bank."):]: _np(v) for k, v in sd.items()
-                              if k.startswith("bank.")},
-         "MLP_0": _flax_mlp(sd, "composer"),
-         "Dense_0": _flax_dense(sd, "composer_head")}
+    """``nets.PolicyMCP`` or ``nets.PolicyGaussian`` state dict -> flax
+    params of the same policy."""
+    if "head.weight" in sd:
+        p = value_params(sd)["params"]
+    else:
+        p = {"_PrimitiveBank_0": {k[len("bank."):]: _np(v)
+                                  for k, v in sd.items() if k.startswith("bank.")},
+             "MLP_0": _flax_mlp(sd, "composer"),
+             "Dense_0": _flax_dense(sd, "composer_head")}
     if "log_std" in sd:
         p["log_std"] = _np(sd["log_std"])
     return {"params": p}

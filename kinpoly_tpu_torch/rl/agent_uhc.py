@@ -1,8 +1,8 @@
-"""UHC agent (port of ``kinpoly_tpu/rl/agent_uhc.py``): the MCP policy, the
-value net and the observation norm; PPO training, one iteration per
-``train_epoch`` (rollout, running-norm update, GAE, PPO update); adaptive
-hard-clip mining; checkpoints in the JAX package's layout; deterministic
-coverage evaluation.
+"""UHC agent (port of ``kinpoly_tpu/rl/agent_uhc.py``): the MCP or Gaussian
+policy, the value net and the observation norm; PPO training, one iteration
+per ``train_epoch`` (rollout, running-norm update, GAE, PPO update); adaptive
+hard-clip mining; checkpoints in the JAX package's layout; coverage
+evaluation, deterministic and over sampled runs.
 
 Nothing is read back to the host inside an iteration; ``train_epoch`` makes
 one fetch of the metrics and the per-step episode ends at its end, for the
@@ -26,8 +26,6 @@ from kinpoly_tpu_torch.models import nets, weights
 from kinpoly_tpu_torch.rl import gae, ppo
 from kinpoly_tpu_torch.rl import rollout as ro
 from kinpoly_tpu_torch.rl import running_norm as rn
-
-OBS_DIM = 784
 
 
 @dataclass
@@ -56,6 +54,21 @@ class UHCTrainConfig:
     save_model_interval: int = 100
 
 
+def make_policy(cfg: UHCTrainConfig, obs_dim: int, action_dim: int):
+    """The policy of ``cfg.actor_type``: "mcp" or "gauss"."""
+    if cfg.actor_type == "mcp":
+        return nets.PolicyMCP(
+            obs_dim, action_dim, num_primitive=cfg.num_primitive,
+            hidden=cfg.policy_hsize, activation=cfg.policy_htype,
+            log_std_init=cfg.log_std, fix_std=cfg.fix_std)
+    if cfg.actor_type == "gauss":
+        return nets.PolicyGaussian(
+            obs_dim, action_dim, hidden=cfg.policy_hsize,
+            activation=cfg.policy_htype, log_std_init=cfg.log_std,
+            fix_std=cfg.fix_std)
+    raise ValueError(f"actor_type {cfg.actor_type!r}")
+
+
 class UHCAgent:
     """`cfg` is a ``UHCTrainConfig`` or a ``UHCConfig`` (whose
     ``train_config()`` is taken). Fresh nets are drawn from one generator on
@@ -65,21 +78,17 @@ class UHCAgent:
     def __init__(self, env: HumanoidImEnv, cfg, out_dir: str | None = None):
         if isinstance(cfg, UHCConfig):
             cfg = cfg.train_config()
-        if cfg.actor_type != "mcp":
-            raise ValueError(f"actor_type {cfg.actor_type!r} is not ported")
         self.env = env
         self.cfg = cfg
         self.out_dir = Path(out_dir) if out_dir else None
         self.n_clips = env.n_clips
         dtype, device = env.model.dtype, env.model.device
         self.generator = torch.Generator(device=device).manual_seed(cfg.seed)
-        self.policy = nets.PolicyMCP(
-            OBS_DIM, env.action_dim, num_primitive=cfg.num_primitive,
-            hidden=cfg.policy_hsize, activation=cfg.policy_htype,
-            log_std_init=cfg.log_std, fix_std=cfg.fix_std).to(dtype=dtype,
-                                                              device=device)
-        self.value = nets.Value(OBS_DIM, cfg.value_hsize).to(dtype=dtype,
-                                                             device=device)
+        self.obs_dim = env.obs_dim
+        self.policy = make_policy(cfg, self.obs_dim, env.action_dim).to(
+            dtype=dtype, device=device)
+        self.value = nets.Value(self.obs_dim, cfg.value_hsize).to(
+            dtype=dtype, device=device)
         nets.init_flax_(self.policy, self.generator)
         nets.init_flax_(self.value, self.generator)
         self.ppo_cfg = ppo.PPOConfig(
@@ -89,7 +98,7 @@ class UHCAgent:
             max_grad_norm=cfg.max_grad_norm)
         self.policy_opt, self.value_opt = ppo.make_optimizers(
             self.policy, self.value, self.ppo_cfg)
-        self.norm = rn.init(OBS_DIM, device)
+        self.norm = rn.init(self.obs_dim, device)
         self.success_ewma = np.zeros(self.n_clips)
         self.seen = np.zeros(self.n_clips, bool)
         self.epoch = 0
@@ -212,12 +221,11 @@ class UHCAgent:
     # -- evaluation ----------------------------------------------------
 
     @torch.no_grad()
-    def eval_coverage(self, max_steps: int = 512):
-        """Fraction of clips tracked to their end without termination, one
-        env per clip, deterministic reset and mean actions, `max_steps`
-        control steps; a finished env is frozen. Returns (coverage, info)
-        with per-clip ``succ``, max tracked ``percent`` and the final
-        ``state``."""
+    def _track(self, max_steps: int, generator: torch.Generator | None):
+        """One env per clip from a deterministic reset for `max_steps`
+        control steps; a finished env is frozen. Actions are the policy's
+        means, plus its Gaussian noise drawn from `generator` if given.
+        Returns per-clip success, max tracked percent and the final state."""
         env = self.env
         n = env.n_clips
         device = env.model.device
@@ -226,14 +234,35 @@ class UHCAgent:
         succ = torch.zeros_like(running)
         pct = torch.zeros(n, dtype=obs.dtype, device=device)
         for _ in range(max_steps):
-            mean, _ = self.policy(rn.apply(self.norm, obs))
-            state2, obs2, _, done, info = env.step(state, mean)
+            action, log_std = self.policy(rn.apply(self.norm, obs))
+            if generator is not None:
+                action = action + torch.exp(log_std) * torch.randn(
+                    action.shape, generator=generator, dtype=action.dtype,
+                    device=device)
+            state2, obs2, _, done, info = env.step(state, action)
             state = select(running, state2, state)
             obs = torch.where(running[:, None], obs2, obs)
             succ |= running & info.end & ~info.fail
             pct = torch.maximum(pct, torch.where(running, info.percent,
                                                  torch.zeros_like(pct)))
             running = running & ~done
-        succ = succ.cpu().numpy()
-        return float(succ.mean()), dict(succ=succ, percent=pct.cpu().numpy(),
-                                        state=state)
+        return succ.cpu().numpy(), pct.cpu().numpy(), state
+
+    def eval_coverage(self, max_steps: int = 512, stochastic_seeds: int = 0):
+        """Fraction of clips tracked to their end without termination, one
+        env per clip, deterministic reset and mean actions, `max_steps`
+        control steps. Returns (coverage, info) with per-clip ``succ``, max
+        tracked ``percent`` and the final ``state``; with
+        ``stochastic_seeds=N`` also ``coverage_mean``, ``coverage_std`` and
+        ``coverage_seeds`` over N runs with sampled actions, run s drawing
+        from a generator seeded 1000 + s."""
+        succ, pct, state = self._track(max_steps, None)
+        info = dict(succ=succ, percent=pct, state=state)
+        if stochastic_seeds > 0:
+            device = self.env.model.device
+            covs = [float(self._track(max_steps, torch.Generator(
+                device=device).manual_seed(1000 + s))[0].mean())
+                for s in range(stochastic_seeds)]
+            info.update(coverage_mean=float(np.mean(covs)),
+                        coverage_std=float(np.std(covs)), coverage_seeds=covs)
+        return float(succ.mean()), info

@@ -65,15 +65,16 @@ def init_rollout_state(env: HumanoidImEnv, generator: torch.Generator,
 
 def make_rollout(env: HumanoidImEnv, policy: Callable, n_steps: int,
                  noise_rate: float = 1.0):
-    """`rollout(carry, norm, clip_probs, generator, noise_rate_t=None)` ->
-    (new carry, Trajectory). `policy(obs_n)` gives (mean, log_std);
-    `noise_rate_t` overrides the construction-time noise rate (the adaptive
-    schedules)."""
+    """`rollout(carry, norm, clip_probs, generator, noise_rate_t=None,
+    mean_action=False)` -> (new carry, Trajectory). `policy(obs_n)` gives
+    (mean, log_std); `noise_rate_t` overrides the construction-time noise
+    rate (the adaptive schedules); with `mean_action` no action is explored
+    (the draws are still made, so the generator's stream is the same)."""
 
     @torch.no_grad()
     def rollout(carry: RolloutState, norm: rn.RunningNorm,
                 clip_probs: torch.Tensor, generator: torch.Generator,
-                noise_rate_t: float | None = None):
+                noise_rate_t: float | None = None, mean_action: bool = False):
         nr = noise_rate if noise_rate_t is None else noise_rate_t
         traj = None
         for t in range(n_steps):
@@ -81,7 +82,7 @@ def make_rollout(env: HumanoidImEnv, policy: Callable, n_steps: int,
             mean, log_std = policy(obs_n)
             n_envs = mean.shape[0]
             draw = dict(generator=generator, dtype=mean.dtype, device=mean.device)
-            explore = torch.rand(n_envs, **draw) < nr
+            explore = (torch.rand(n_envs, **draw) < nr) & (not mean_action)
             noise = torch.randn(mean.shape, **draw)
             action = mean + explore[:, None].to(mean.dtype) * torch.exp(log_std) * noise
             log_prob = nets.gaussian_log_prob(action, mean, log_std)

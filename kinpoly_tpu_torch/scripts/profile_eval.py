@@ -1,13 +1,19 @@
-"""Where the time of UHC evaluation goes on the card: torch.profiler over a
-few control steps of the evaluation loop.
+"""Where the time of UHC evaluation or training goes on the card:
+torch.profiler over a few control steps of the evaluation loop, or over one
+training iteration.
 
-    python -m kinpoly_tpu_torch.scripts.profile_eval --clips 24 --steps 3 \\
-        [--trace eval_trace.json]
+    python -m kinpoly_tpu_torch.scripts.profile_eval --steps 3 \\
+        [--data data_bank/clips24.pkl] [--trace eval_trace.json]
+    python -m kinpoly_tpu_torch.scripts.profile_eval --train \\
+        [--data data_bank/clips24.pkl] [--n-envs 1024] [--steps 8]
 
-Prints the host wall time per control step, the device's busy share (union
-of kernel intervals over the profiled wall time), kernel launches and
-host-device synchronisations per control step, and the kernels and
-operators with the most device time. Needs a CUDA device.
+Evaluation: one env per take, ``--steps`` control steps. ``--train``: one
+``train_epoch`` of ``--n-envs`` envs x ``--steps`` control steps (rollout,
+norm, GAE, PPO update) after one warm-up iteration. Prints the host wall
+time per control step, the device's busy share (union of kernel intervals
+over the profiled wall time), device activities and host-device
+synchronisations per control step, and the kernels and operators with the
+most device time. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -18,7 +24,9 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from kinpoly_tpu_torch.scripts.eval_uhc import build_agent
+from kinpoly_tpu_torch.config.defaults import UHCConfig
+from kinpoly_tpu_torch.scripts.eval_uhc import build_agent, get_takes
+from kinpoly_tpu_torch.scripts.train_uhc import build_trainer
 
 _SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
                "cudaMemcpy", "cudaMemcpyAsync", "cudaEventSynchronize")
@@ -33,22 +41,13 @@ def _busy_us(intervals: list[tuple[float, float]]) -> float:
     return busy
 
 
-def main(argv=None):
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--iter", type=int, default=13000)
-    p.add_argument("--clips", type=int, default=24)
-    p.add_argument("--frames", type=int, default=120)
-    p.add_argument("--steps", type=int, default=3)
-    p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--trace", default=None, help="write a chrome trace here")
-    args = p.parse_args(argv)
-
-    agent = build_agent(args.iter, args.clips, args.frames, args.seed, "cuda")
-    agent.eval_coverage(max_steps=2)                  # warm-up
+def profiled(fn, steps: int, what: str, trace: str | None = None) -> None:
+    """Run fn() once under the profiler and print where its time went,
+    per control step of its `steps`."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        agent.eval_coverage(max_steps=args.steps)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.events()
@@ -56,17 +55,51 @@ def main(argv=None):
     busy = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
     syncs = {n: sum(1 for e in events if e.name == n) for n in _SYNC_CALLS}
     print(f"device: {torch.cuda.get_device_name(0)}")
-    print(f"{args.clips} envs, {args.steps} control steps: "
-          f"{wall / args.steps * 1e3:.1f} ms per control step (host wall, "
-          f"profiler on), device busy {busy / 1e6 / wall:.1%}, "
-          f"{len(kernels) / args.steps:.0f} device activities per step")
+    print(f"{what}: {wall:.3f} s, {wall / steps * 1e3:.1f} ms per control step "
+          f"(host wall, profiler on), device busy {busy / 1e6 / wall:.1%}, "
+          f"{len(kernels) / steps:.0f} device activities per step")
     print("host-device syncs per step: " + ", ".join(
-        f"{n} {c / args.steps:.1f}" for n, c in syncs.items() if c))
+        f"{n} {c / steps:.1f}" for n, c in syncs.items() if c))
     key = "self_device_time_total" if hasattr(
         prof.key_averages()[0], "self_device_time_total") else "self_cuda_time_total"
     print(prof.key_averages().table(sort_by=key, row_limit=25))
-    if args.trace:
-        prof.export_chrome_trace(args.trace)
+    if trace:
+        prof.export_chrome_trace(trace)
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--train", action="store_true",
+                   help="profile one training iteration instead")
+    p.add_argument("--iter", type=int, default=13000,
+                   help="checkpoint of the evaluation")
+    p.add_argument("--data", default=None,
+                   help="expert bank (data_bank/*.pkl); default: seeded clips")
+    p.add_argument("--clips", type=int, default=None)
+    p.add_argument("--frames", type=int, default=None)
+    p.add_argument("--n-envs", type=int, default=1024, help="training envs")
+    p.add_argument("--steps", type=int, default=None,
+                   help="control steps (evaluation 3, training 8)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--trace", default=None, help="write a chrome trace here")
+    args = p.parse_args(argv)
+
+    takes = get_takes(args.data, args.clips, args.frames, args.seed)
+    if args.train:
+        steps = args.steps or 8
+        cfg = UHCConfig()
+        agent = build_trainer(takes, cfg, args.n_envs, steps, device="cuda")
+        agent.train_epoch(adaptive=cfg.adaptive_params(0))      # warm-up
+        profiled(lambda: agent.train_epoch(adaptive=cfg.adaptive_params(1)),
+                 steps, f"one training iteration, {args.n_envs} envs x {steps} "
+                 f"control steps", args.trace)
+    else:
+        steps = args.steps or 3
+        agent = build_agent(args.iter, takes, "cuda")
+        agent.eval_coverage(max_steps=2)                        # warm-up
+        profiled(lambda: agent.eval_coverage(max_steps=steps), steps,
+                 f"evaluation, {len(takes)} envs x {steps} control steps",
+                 args.trace)
 
 
 if __name__ == "__main__":

@@ -31,6 +31,10 @@ from kinpoly_tpu_torch.rl import running_norm as trn
 from kinpoly_tpu_torch.rl.agent_uhc import UHCAgent
 from kinpoly_tpu_torch.scripts.eval_uhc import make_clips
 
+# many tiny torch ops: one intra-op thread per process keeps several test
+# workers from oversubscribing the CPU
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(ROOT, "results/motion_im/uhc/models/iter_13000.p")
 NET_TOL = 1e-10     # f64 forward pass of the same float32 weights
@@ -136,11 +140,77 @@ def test_eval_coverage(envs):
     assert info["succ"][:2].all()       # the short clips were tracked to their end
 
 
-def test_uhc_config_matches_yaml():
-    yml = jconfig.load_yaml("uhc")
-    cfg = UHCConfig()
-    names = {f.name for f in dataclasses.fields(cfg)}
+@pytest.mark.parametrize("fix_std", [True, False])
+def test_policy_gaussian_matches_flax(fix_std):
+    """PolicyGaussian with a fixed and a learnable log-std: flax weights in,
+    the same outputs, and the port's weights back out as the flax tree."""
+    jpol = jnets.PolicyGaussian(action_dim=75, hidden=(32, 16),
+                                log_std_init=-1.5, fix_std=fix_std)
+    params = jax.tree.map(lambda x: np.asarray(x, np.float64),
+                          jpol.init(jax.random.PRNGKey(4), jnp.zeros((1, 784))))
+    if not fix_std:
+        params["params"]["log_std"] = np.linspace(-2.0, -1.0, 75)
+    x = np.random.RandomState(5).normal(0, 1, (6, 784))
+    mean_j, log_std_j = jpol.apply(params, jnp.asarray(x))
+    pol = tnets.PolicyGaussian(784, 75, hidden=(32, 16), log_std_init=-1.5,
+                               fix_std=fix_std).double()
+    pol.load_state_dict(weights.policy_state_dict(params))
+    with torch.no_grad():
+        mean_t, log_std_t = pol(torch.tensor(x))
+    _close(mean_t.numpy(), mean_j, NET_TOL)
+    _close(log_std_t.detach().numpy(), log_std_j, NET_TOL)
+    back = weights.policy_params(pol.state_dict())
+    assert jax.tree.structure(back) == jax.tree.structure(params)
+    for got, want in zip(jax.tree.leaves(back), jax.tree.leaves(params)):
+        np.testing.assert_array_equal(got, want)
+    fresh = tnets.init_flax_(tnets.PolicyGaussian(784, 75, fix_std=fix_std),
+                             torch.Generator().manual_seed(0))
+    assert jax.tree.structure(weights.policy_params(fresh.state_dict())) == \
+        jax.tree.structure(jnets.PolicyGaussian(action_dim=75, fix_std=fix_std)
+                           .init(jax.random.PRNGKey(0), jnp.zeros((1, 784))))
+
+
+def test_gauss_actor_type(envs):
+    _, tenv, _ = envs
+    cfg = dataclasses.replace(UHCConfig(), actor_type="gauss", fix_std=False)
+    agent = UHCAgent(tenv, cfg)
+    assert isinstance(agent.policy, tnets.PolicyGaussian)
+    assert float(agent.policy.log_std.detach().max()) == cfg.log_std
+
+
+def test_eval_coverage_stochastic_band(envs):
+    """With a log-std of -30 the sampled runs track as the deterministic
+    one does; JAX gives the same coverage and band."""
+    jenv, tenv, jcfg = envs
+    jagent = jagent_mod.UHCAgent(
+        jenv, dataclasses.replace(jcfg.train_config(), log_std=-30.0))
+    jagent.load_checkpoint(CKPT)
+    jcov, jinfo = jagent.eval_coverage(max_steps=4, stochastic_seeds=2)
+    agent = UHCAgent(tenv, dataclasses.replace(UHCConfig(), log_std=-30.0))
+    agent.load_checkpoint(CKPT)
+    cov, info = agent.eval_coverage(max_steps=4, stochastic_seeds=2)
+    assert cov == jcov
+    assert info["coverage_seeds"] == [cov, cov] == jinfo["coverage_seeds"]
+    assert info["coverage_mean"] == cov and info["coverage_std"] == 0.0
+    np.testing.assert_array_equal(info["succ"], jinfo["succ"])
+
+
+def _config_matches_yaml(name):
+    yml = jconfig.load_yaml(name)
+    cfg = UHCConfig.named(name)
+    names = {f.name for f in dataclasses.fields(cfg)} - {"name"}
     assert names == set(yml)
     for k, v in yml.items():
         got = getattr(cfg, k)
         assert (tuple(v) if isinstance(v, list) else v) == got, k
+    assert cfg.name == jconfig.UHCConfig(name, "results").id
+    assert cfg.model_dir("out") == jconfig.UHCConfig(name, "out").model_dir
+
+
+def test_uhc_config_matches_yaml():
+    _config_matches_yaml("uhc")
+    assert UHCConfig() == UHCConfig.named("uhc")
+
+
+def test_uhc_quatv2_config_matches_yaml():
+    _config_matches_yaml("uhc_quatv2")

@@ -7,6 +7,7 @@ rate 0 or 1, one-hot clip probabilities, a one-state hard bank); the draws
 themselves are checked for their distribution."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +33,10 @@ from kinpoly_tpu_torch.physics import engine as teng
 from kinpoly_tpu_torch.rl import rollout as tro
 from kinpoly_tpu_torch.rl import running_norm as trn
 from kinpoly_tpu_torch.scripts.eval_uhc import make_clips
+
+# many tiny torch ops: one intra-op thread per process keeps several test
+# workers from oversubscribing the CPU
+torch.set_num_threads(1)
 
 ENV_TOL = 1e-7      # physics in float64, as test_torch_engine
 FRAMES = (3, 4, 6)  # clip lengths: the first ends inside a short rollout
@@ -163,10 +168,10 @@ def test_rollout_exploration_share(worlds):
     assert float((traj.actions[0] - mean)[traj.exps[0] == 0].abs().max()) == 0.0
 
 
-def test_rollout_matches_jax(worlds):
-    """Five control steps of 3 envs with the mean action and a one-hot clip
-    distribution on the 3-frame clip: every env ends at step 3 and is
-    auto-reset; every trajectory field agrees."""
+def _rollouts_match(worlds, noise_rate, mean_action):
+    """Five control steps of 3 envs and a one-hot clip distribution on the
+    3-frame clip: every env ends at step 3 and is auto-reset; every
+    trajectory field agrees."""
     jenv, tenv = _envs(worlds, reactive_rate=0.0)
     jpol = jnets.PolicyMCP(action_dim=75, num_primitive=2, hidden=(16,),
                            composer_hidden=(8,))
@@ -182,14 +187,15 @@ def test_rollout_matches_jax(worlds):
 
     carry = jro.init_rollout_state(jenv, jax.random.PRNGKey(1), n,
                                    jnp.asarray(probs))
-    jrollout = jro.make_rollout(jenv, jpol.apply, steps, noise_rate=0.0)
-    jcarry, jtraj = jax.jit(jrollout)(carry, pp, jrn.RunningNorm(*norm_np),
-                                      jnp.asarray(probs))
+    jrollout = jro.make_rollout(jenv, jpol.apply, steps, noise_rate=noise_rate)
+    jcarry, jtraj = jax.jit(functools.partial(jrollout, mean_action=mean_action))(
+        carry, pp, jrn.RunningNorm(*norm_np), jnp.asarray(probs))
     g = torch.Generator().manual_seed(1)
     tprobs = torch.tensor(probs)
     tcarry = tro.init_rollout_state(tenv, g, n, tprobs)
-    tcarry, ttraj = tro.make_rollout(tenv, tpol, steps, noise_rate=0.0)(
-        tcarry, trn.RunningNorm(*map(torch.tensor, norm_np)), tprobs, g)
+    tcarry, ttraj = tro.make_rollout(tenv, tpol, steps, noise_rate=noise_rate)(
+        tcarry, trn.RunningNorm(*map(torch.tensor, norm_np)), tprobs, g,
+        mean_action=mean_action)
 
     assert np.asarray(jtraj.masks)[2].sum() == 0      # all ended at step 3
     for name in ttraj._fields:
@@ -202,3 +208,33 @@ def test_rollout_matches_jax(worlds):
     _close(tcarry.env_state.sim.qpos.numpy(), jcarry.env_state.sim.qpos, ENV_TOL)
     np.testing.assert_array_equal(tcarry.env_state.cur_t.numpy(),
                                   np.asarray(jcarry.env_state.cur_t))
+    return ttraj
+
+
+def test_rollout_matches_jax(worlds):
+    """Noise rate 0: every action is the policy's mean."""
+    _rollouts_match(worlds, noise_rate=0.0, mean_action=False)
+
+
+def test_mean_action_rollout_matches_jax(worlds):
+    """Noise rate 1 with mean_action: no action is explored."""
+    traj = _rollouts_match(worlds, noise_rate=1.0, mean_action=True)
+    assert float(traj.exps.abs().max()) == 0.0
+
+
+def test_mean_action_keeps_the_draws(worlds):
+    """mean_action draws what an exploring rollout draws, so the generator
+    ends in the same state."""
+    _, tenv = _envs(worlds, reactive_rate=0.0)
+    pol = tnets.PolicyMCP(784, 75, num_primitive=2, hidden=(8,),
+                          composer_hidden=(4,)).double()
+    tnets.init_flax_(pol, torch.Generator().manual_seed(0))
+    probs = torch.full((3,), 1 / 3, dtype=torch.float64)
+    ends = []
+    for mean_action in (False, True):
+        g = torch.Generator().manual_seed(4)
+        carry = tro.init_rollout_state(tenv, g, 5, probs)
+        tro.make_rollout(tenv, pol, 4, noise_rate=0.5)(
+            carry, trn.init(784), probs, g, mean_action=mean_action)
+        ends.append(torch.rand(3, generator=g))
+    assert torch.equal(ends[0], ends[1])
