@@ -47,6 +47,21 @@ Phases, one line each with its seconds:
   9. states   gen_states: one round of 64 envs x 8 control steps of the
               trained policy on clips24 into a temporary bank, read back
               through the bank reader
+ 10. ar       the AR evaluation path (eval_ar_policy): the kinematic policy
+              iter_0800.p with iter_13000.p as the controller on the 12
+              takes of data_bank/wild_takes_r5.pkl, five movable objects,
+              contact plan, compaction (16, 8); builds the context (the
+              open-loop AR rollout over the longest take, 188 frames), then
+              60 control steps of the 12 envs with launch counters set to
+              0 just before and read just after (exactly 30 ltdl_factor,
+              15 ltdl_solve[R=1], 15 ltdl_solve[R=49] and 15 pgs_solve per
+              step); humanoid and object states finite; the pose metrics
+              and success of each take finite; prints ms per control step
+              and the LTDL kernel ms per AR control step; then one AR env
+              step of a seeded take with the box touching the right hand,
+              card float32 against the CPU float64 plain path (state,
+              objects, reward and its six components), and the same on the
+              first 4 wild takes, reported
 Then a JSON line with every kernel's numbers, the card's nvidia-smi line,
 and as the last line {"ok": true, "device": {...}}. Any failure exits
 non-zero before that line; a watchdog ends the run past 10 minutes.
@@ -87,6 +102,11 @@ PARITY_ATOL = 1e-3            # qpos/qvel after one control step, f32 vs f64
 REWARD_ATOL = 1e-4            # reward and its components after that step
 GEN_ENVS, GEN_STEPS = 64, 8   # gen_states: one round
 QUAT_ENVS = 8                 # the uhc_quatv2 env-step parity
+WILD = os.path.join("data_bank", "wild_takes_r5.pkl")  # 12 takes, 120-188 frames
+AR_ITER, AR_OUT = 800, "results_r5"   # results_r5/statear/kin_poly/models/
+UHC_CKPT = os.path.join("results", "motion_im", "uhc", "models", "iter_13000.p")
+AR_STEPS = 60                 # control steps of the AR phase
+AR_WILD_PARITY = 4            # wild takes in the reported AR step parity
 T0 = time.perf_counter()
 
 
@@ -178,9 +198,19 @@ def capture_substep(model, n: int, seed: int):
     qvel = rng.normal(0, 0.5, (n, 75))
     t = lambda x: torch.as_tensor(x, dtype=model.dtype, device=model.device)
     state = eng.SimState(t(qpos), t(qvel))
+    if model.movable_objects:
+        # every object parked as the AR env parks it, the box on the right
+        # hand of each env
+        n_obj = len(model.spec.objects)
+        obj = np.zeros((n, n_obj, 7))
+        obj[:, :, 0] = (np.arange(n_obj) + 1) * 100.0
+        obj[:, :, 1] = 100.0
+        obj[:, :, 3] = 1.0
+        obj[:, 1, :3] = box_on_hand(model, state.qpos).cpu().numpy()
+        state = state._replace(obj_qpos=t(obj), obj_qvel=t(np.zeros((n, n_obj, 6))))
     action = t(rng.normal(0, 0.3, (n, 75)))
     base_rot = t(np.asarray([0.7071, 0.7071, 0.0, 0.0], np.float32))
-    plan = eng.build_contact_plan(model, state.qpos)
+    plan = eng.build_contact_plan(model, state.qpos, state.obj_qpos)
     for k, (mod, name) in wrappers.items():
         setattr(mod, name, rec(k, orig[k]))
     try:
@@ -193,6 +223,23 @@ def capture_substep(model, n: int, seed: int):
     if not (torch.isfinite(out.qpos).all() and torch.isfinite(out.qvel).all()):
         fail("capture substep produced non-finite state")
     return {k: v for k, v in calls.items() if v}
+
+
+def box_on_hand(model, qpos):
+    """(N, 3) box position (object frame) that puts the box's top face, 0.02
+    above its frame origin, 5 mm above the lowest contact vertex of each
+    env's right hand: a contact."""
+    import torch
+    from kinpoly_tpu_torch.core import tmath
+    from kinpoly_tpu_torch.physics import fk as fklib
+
+    res = fklib.fk(model.st, qpos)
+    hand = model.spec.body_index("R_Hand")
+    world = res.xpos[:, hand, None, :] + tmath.quat_rot_vec(
+        res.xquat[:, hand, None, :], model.cand_verts[model.cand_body == hand])
+    p = world[torch.arange(world.shape[0], device=world.device),
+              world[..., 2].argmin(dim=-1)]
+    return torch.cat([p[:, :2], p[:, 2:] - 0.02 + 0.005], dim=-1)
 
 
 def spd_systems(n: int, dim: int, seed: int) -> np.ndarray:
@@ -347,7 +394,7 @@ def control_step_parity(card_model, cpu_model, bank_qpos) -> float:
         t = lambda x: torch.as_tensor(x, dtype=m.dtype, device=m.device)
         s = eng.control_step(m, eng.SimState(t(qpos), t(qvel)), t(action),
                              t(q0[:, 7:]), t(base_rot))
-        outs.append([x.double().cpu() for x in s])
+        outs.append([x.double().cpu() for x in s if x is not None])
     return max(float((a - b).abs().max()) for a, b in zip(*outs))
 
 
@@ -373,6 +420,134 @@ def env_step_parity(cfg_name: str, card_model, cpu_model, takes: dict):
     (q1, v1, r1, c1), (q2, v2, r2, c2) = outs
     return (max(float((q1 - q2).abs().max()), float((v1 - v2).abs().max())),
             max(float((r1 - r2).abs().max()), float((c1 - c2).abs().max())))
+
+
+def ar_kernel_entries(device, kernels: list) -> tuple[list[dict], str]:
+    """K2 at R = 49 and K3 at 24 blocks (72 rows) on one real AR substep of
+    N_ENVS envs (five movable objects, compaction (16, 8), the box on each
+    right hand): each against its plain version as the main shapes are
+    (K2: unit-normal right-hand sides within LTDL_ATOL, the substep's own
+    within SOLVE_RTOL of max |x|; K3: no farther from float64 than twice
+    the float32 plain version), timed with its bound and library call."""
+    import torch
+    from kinpoly_tpu_torch.anim.spec import synthetic_spec
+    from kinpoly_tpu_torch.config.defaults import uhc_control_params
+    from kinpoly_tpu_torch.physics import contact as ct
+    from kinpoly_tpu_torch.physics import engine as eng
+    from kinpoly_tpu_torch.physics import ltdl, ltdl_cuda, pgs_cuda
+
+    spec = synthetic_spec(with_objects=True)
+    model = eng.build_model(spec, uhc_control_params(spec), device=device,
+                            with_objects=True, movable_objects=True,
+                            compact_k=(16, 8))
+    calls = capture_substep(model, N_ENVS, 1)
+    widths = sorted(a[2].shape[-1] for a, _ in calls["solve"])
+    (args, kw), = calls["pgs"]
+    if widths != [1, 49] or len(calls["factor"]) != 2 or args[1].shape[-1] != 72:
+        fail(f"an AR substep solved widths {widths} and a PSOR of "
+             f"{args[1].shape[-1]} rows, expected [1, 49] and 72")
+    topo = model.topo
+    depth = topo.depth.astype(float)
+    n_valid = int((topo.depth + 1).sum())
+    nv = topo.nv
+    ref = {k["name"]: k for k in kernels}
+    (fargs, _) = calls["factor"][1]                  # M, factored second
+    sargs = next(a for a, _ in calls["solve"] if a[2].shape[-1] == 49)
+    Rf, B = sargs[1], sargs[2]
+    gen = torch.Generator(device=device).manual_seed(5)
+    Bn = torch.randn(B.shape, generator=gen, device=device)
+    err = float((ltdl_cuda.solve(topo, Rf, Bn) - ltdl.solve(topo, Rf, Bn))
+                .abs().max())
+    Xp = ltdl.solve(topo, Rf, B)
+    rel = float((ltdl_cuda.solve(topo, Rf, B) - Xp).abs().max() / Xp.abs().max())
+    if not err < LTDL_ATOL:
+        fail(f"ltdl_solve[R=49] on the AR substep: max abs err {err:.3g}")
+    if not rel < SOLVE_RTOL:
+        fail(f"ltdl_solve[R=49] on the AR substep's right-hand sides: "
+             f"relative err {rel:.3g} >= {SOLVE_RTOL}")
+    L = torch.linalg.cholesky_ex(ltdl.unpack(topo, fargs[1]))[0]
+    b2, by2 = bound_ms((N_ENVS * n_valid + 2 * B.numel()) * 4,
+                       N_ENVS * 49 * (4 * float(depth.sum()) + nv))
+    k2 = dict(name="ltdl_solve[R=49]", route="cuda",
+              source="kinpoly_tpu_torch/csrc/ltdl.cu",
+              replaces="kinpoly_tpu/physics/pallas_ltdl.py:118",
+              launches=None, max_abs_err=err,
+              ms=cuda_ms(lambda: ltdl_cuda.solve(topo, Rf, B), 50),
+              plain_ms=cuda_ms(lambda: ltdl.solve(topo, Rf, B), 5),
+              bound_ms=b2, bound_by=by2,
+              library_ms=cuda_ms(lambda: torch.cholesky_solve(B, L), 20),
+              library="torch.cholesky_solve")
+    A, rhs, Dinv, Rr, mu, active = args[:6]
+    iters = args[6] if len(args) > 6 else kw["iters"]
+    C, K = rhs.shape[-1], mu.shape[-1]
+    f_d = ct.psor_plain(*[x.double() if x.is_floating_point() else x
+                          for x in args[:6]], iters)
+    f_k = pgs_cuda.pgs_solve(*args[:6], iters)
+    f_p = ct.psor_plain(*args[:6], iters)
+    ek = float((f_k.double() - f_d).abs().max())
+    ep = float((f_p.double() - f_d).abs().max())
+    if not ek <= 2 * ep + PGS_ATOL:
+        fail(f"pgs_solve on the AR substep's system: {ek:.3g} from float64, "
+             f"the float32 plain version {ep:.3g}")
+    b3, by3 = bound_ms(4 * (A.numel() + 3 * rhs.numel() + Dinv.numel()
+                            + mu.numel()) + active.numel() * active.element_size(),
+                       N_ENVS * iters * K * (3 * C * 2 + 9 * 2 + 12))
+    k3 = dict(name="pgs_solve[C=72]", route="cuda",
+              source="kinpoly_tpu_torch/csrc/pgs.cu",
+              replaces="kinpoly_tpu/physics/pallas_pgs.py:115",
+              launches=None, max_abs_err=float((f_k - f_p).abs().max()),
+              ms=cuda_ms(lambda: pgs_cuda.pgs_solve(*args[:6], iters), 50),
+              plain_ms=cuda_ms(lambda: ct.psor_plain(*args[:6], iters), 2),
+              bound_ms=b3, bound_by=by3, library_ms=None, library=None)
+    msg = (f"AR substep, N={N_ENVS}: ltdl_solve[R=49] err {err:.3g} (substep "
+           f"rhs rel {rel:.3g}) {k2['ms']:.4f} ms (bound {b2:.4f}, "
+           f"cholesky_solve {k2['library_ms']:.4f}; R=55 {ref['ltdl_solve[R=55]']['ms']:.4f}) "
+           f"| pgs_solve C=72 kernel {ek:.3g}, plain {ep:.3g} from float64 "
+           f"{k3['ms']:.4f} ms (bound {b3:.4f}; C=54 {ref['pgs_solve']['ms']:.4f})")
+    return [k2, k3], msg
+
+
+def ar_step_parity(takes, device, here: str, box_on_the_hand: bool):
+    """One AR env step of one env per take, card (float32, kernels) against
+    the CPU float64 plain path, from the CPU's context bank (cast to the
+    card) and the CPU policy's mean action: max abs difference of humanoid
+    and object state, and of the reward and its components. With
+    `box_on_the_hand` the box is moved onto each env's right hand at the
+    reset pose."""
+    import torch
+    from kinpoly_tpu_torch.scripts import eval_ar_policy as ear
+
+    kw = dict(uhc_checkpoint=os.path.join(here, UHC_CKPT),
+              out_root=os.path.join(here, AR_OUT))
+    evs = [ear.build_eval(takes, AR_ITER, device, **kw),
+           ear.build_eval(takes, AR_ITER, "cpu", torch.float64, **kw)]
+    ctx = evs[1].ctx
+    if box_on_the_hand:
+        box = box_on_hand(evs[1].model, ctx.init_qpos)
+        obj = ctx.obj_pose.clone()
+        obj[:, :, :3] = box[:, None]
+        ctx = ctx._replace(obj_pose=obj)
+    outs, action = [], None
+    for ev in (evs[1], evs[0]):
+        m = ev.model
+        ev.env.ctx = type(ctx)(*(None if x is None else x.to(
+            device=m.device, dtype=m.dtype if x.is_floating_point() else x.dtype)
+            for x in ctx))
+        state, obs = ev.env.reset(torch.arange(len(takes), device=m.device))
+        if action is None:
+            with torch.no_grad():
+                action = ev.agent.policy.action_mean(
+                    ev.agent.policy.init_carry(len(takes), obs), obs)[1]
+        with torch.no_grad():
+            state, _, reward, _, info = ev.env.step(
+                state, action.to(device=m.device, dtype=m.dtype))
+        sim = state.sim
+        outs.append([x.double().cpu() for x in (
+            sim.qpos, sim.qvel, sim.obj_qpos, sim.obj_qvel, reward,
+            info.reward_info)])
+    (a, b) = outs
+    return (max(float((x - y).abs().max()) for x, y in zip(a[:4], b[:4])),
+            max(float((x - y).abs().max()) for x, y in zip(a[4:], b[4:])))
 
 
 def run_training(device, iters: int, takes: dict, hard_states=None,
@@ -811,6 +986,72 @@ def main() -> None:
             or hs["qvel"].shape != (k, 75) or hs["qpos"].dtype != np.float32
             or not np.isfinite(hs["qpos"]).all()):
         fail(f"gen_states bank reads back as {[(x, v.shape, v.dtype) for x, v in hs.items()]}")
+
+    # 10. ar: the AR evaluation path on the wild takes ------------------------
+    tp = time.perf_counter()
+    from kinpoly_tpu_torch.scripts import eval_ar_policy as ear
+    ar_k, msg = ar_kernel_entries(device, kernels)
+    say("ar", msg, tp)
+    tp = time.perf_counter()
+    spec_o = synthetic_spec(with_objects=True)
+    wild = ear.get_takes(spec_o, os.path.join(here, WILD))
+    ev = ear.build_eval(wild, AR_ITER, device,
+                        uhc_checkpoint=os.path.join(here, UHC_CKPT),
+                        out_root=os.path.join(here, AR_OUT))
+    torch.cuda.synchronize()
+    if not ev.loaded:
+        fail(f"no AR checkpoint iter_{AR_ITER:04d}.p under {AR_OUT}")
+    ctx_s = time.perf_counter() - tp
+    native.LAUNCHES.clear()
+    t_run = time.perf_counter()
+    traj = ear.rollout(ev, AR_STEPS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    launches = dict(native.LAUNCHES)
+    expect = {"ltdl_factor": 30 * AR_STEPS, "ltdl_solve[R=1]": 15 * AR_STEPS,
+              "ltdl_solve[R=49]": 15 * AR_STEPS, "pgs_solve": 15 * AR_STEPS}
+    finite = all(bool(torch.isfinite(x).all()) for x in (
+        traj.res_qpos, traj.obj_qpos, traj.actions, traj.rewards))
+    rows, records = ear.take_rows(ev, traj)
+    summ = ear.summary(rows, records)
+    ar_ms = run_s / AR_STEPS * 1e3
+    say("ar", f"{ev.n_takes} wild takes of {WILD} (longest "
+        f"{ev.batch.qpos.shape[1]} frames), context {ctx_s:.2f} s; {AR_STEPS} "
+        f"control steps: {ar_ms:.1f} ms per control step, launches {launches} "
+        f"(expected {expect}), finite {finite}; success "
+        f"{summ['succ']}, mean tracked {summ['mean']['percent']:.3f}; MEAN "
+        + " ".join(f"{k}:{v:.3f}" for k, v in summ["mean"].items()), tp)
+    if launches != expect:
+        fail(f"AR kernel launches {launches} != {expect}")
+    if not finite or tuple(traj.obj_qpos.shape[1:]) != (ev.n_takes, 5, 7):
+        fail("non-finite or misshapen humanoid or object state in the AR phase")
+    if not all(np.isfinite(v) for r in rows for v in r.values()):
+        fail(f"non-finite AR pose metrics or success: {rows}")
+    ar_k[0]["launches"] = launches["ltdl_solve[R=49]"]
+    ar_k[1]["launches"] = launches["pgs_solve"]
+    ms_of = {k["name"]: k["ms"] for k in kernels + ar_k}
+    ar_kms = (30 * ms_of["ltdl_factor"] + 15 * ms_of["ltdl_solve[R=1]"]
+              + 15 * ms_of["ltdl_solve[R=49]"] + 15 * ms_of["pgs_solve[C=72]"])
+    kernels += ar_k
+    say("ar", f"LTDL kernel time per AR control step at N={N_ENVS}: "
+        f"{ar_kms:.3f} ms (30 x K1 + 15 x K2[R=1] + 15 x K2[R=49] + 15 x "
+        f"K3[C=72])", tp)
+    del ev, traj
+    tp = time.perf_counter()
+    seeded = [ear.standing_take(spec_o, 8, seed=s, action="push")
+              for s in range(4)]
+    qerr, rerr = ar_step_parity(seeded, device, here, box_on_the_hand=True)
+    wq, wr = ar_step_parity(wild[:AR_WILD_PARITY], device, here,
+                            box_on_the_hand=False)
+    say("ar", f"one AR env step, 4 seeded push takes with the box on the "
+        f"right hand, card f32 vs CPU f64: state and objects max abs err "
+        f"{qerr:.3g} (tol {PARITY_ATOL}), reward and components {rerr:.3g} "
+        f"(tol {REWARD_ATOL}); on the first {AR_WILD_PARITY} wild takes "
+        f"(reported, not gated): {wq:.3g} and {wr:.3g}", tp)
+    if not qerr < PARITY_ATOL:
+        fail(f"AR card vs CPU state error {qerr:.3g}")
+    if not rerr < REWARD_ATOL:
+        fail(f"AR card vs CPU reward error {rerr:.3g}")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)

@@ -9,10 +9,16 @@ offsets in the SMPL y-up rest frame, box meshes, diagonal inertias, hinge
 armature 0.01 and a 450 Hz timestep. Every width the trained controller
 sees (784-wide observation, 75 actions) is the real one. Parsing the real
 MJCF waits until the assets are in the repository.
+
+``synthetic_spec(seed, with_objects=True)`` adds the AR scene's five free
+objects, built in code in the reference scene's order (chair, box, table,
+Can, step): boxes and one cylinder at household sizes and masses, posed so
+that each rests on the floor at the object-frame height the AR takes use.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import NamedTuple
 
@@ -199,11 +205,12 @@ def _box_corners(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
                        for i in (0, 1) for j in (0, 1) for k in (0, 1)])
 
 
-def synthetic_spec(seed: int = 0) -> HumanoidSpec:
+def synthetic_spec(seed: int = 0, with_objects: bool = False) -> HumanoidSpec:
     """The synthetic SMPL humanoid. Box corners carry a seeded jitter of up
     to 2 mm so that no two contact candidates tie in height or in support
     direction: candidate selection and per-substep top-k then have one
-    answer, whatever order a framework breaks ties in."""
+    answer, whatever order a framework breaks ties in. ``with_objects``
+    adds ``synthetic_objects()``; without it the spec has no objects."""
     rng = np.random.RandomState(seed)
     names = SMPL_BONE_NAMES
     parents = np.asarray([-1 if _PARENT[n] is None else names.index(_PARENT[n])
@@ -256,10 +263,78 @@ def synthetic_spec(seed: int = 0) -> HumanoidSpec:
         timestep=TIMESTEP,
         mesh_verts=tuple(verts),
         mesh_faces=tuple(faces),
-        objects=(),
+        objects=synthetic_objects() if with_objects else (),
         floor_friction=np.asarray([1.0, 0.1, 0.1]),
         geom_margin=GEOM_MARGIN,
     )
+
+
+# the AR scene's objects: (name, mass kg, [(gtype, size, pos)]) in the
+# reference scene's order. Object frames sit where the AR takes pose them:
+# the chair's at its seat (seat top +0.02, legs to -0.38), the box's 0.1
+# above its centre (it rests on the table top at -0.22), the table's 0.09
+# above its top (legs to -0.79), the Can's at its lid (bottom at -0.69)
+# and the step's 0.03 above its top (bottom at -0.37); box sizes are
+# half-extents, the cylinder's (radius, half-height)
+_OBJECTS = (
+    ("chair", 7.0, [("box", (0.22, 0.22, 0.02), (0.0, 0.0, 0.0))]
+     + [("box", (0.02, 0.02, 0.18), (sx * 0.19, sy * 0.19, -0.2))
+        for sx in (-1, 1) for sy in (-1, 1)]
+     + [("box", (0.22, 0.02, 0.25), (0.0, -0.2, 0.27))]),
+    ("box", 1.0, [("box", (0.15, 0.19, 0.12), (0.0, 0.0, -0.1))]),
+    ("table", 25.0, [("box", (0.45, 0.65, 0.02), (0.0, 0.0, -0.11))]
+     + [("box", (0.03, 0.03, 0.34), (sx * 0.4, sy * 0.6, -0.45))
+        for sx in (-1, 1) for sy in (-1, 1)]),
+    ("Can", 3.0, [("cylinder", (0.279, 0.345), (0.0, 0.0, -0.345))]),
+    ("step", 9.0, [("box", (0.4, 0.4, 0.17), (0.0, 0.0, -0.2))]),
+)
+
+
+def _geom_volume(gtype: str, size: np.ndarray) -> float:
+    if gtype == "box":
+        return 8.0 * float(np.prod(size))
+    return 2.0 * np.pi * size[0] ** 2 * size[1]
+
+
+def _geom_inertia(gtype: str, size: np.ndarray, m: float) -> np.ndarray:
+    """Solid box (half-extents) or z-aligned cylinder (radius,
+    half-height) about its centre."""
+    if gtype == "box":
+        s = size
+        return np.diag(m / 3.0 * np.asarray(
+            [s[1] ** 2 + s[2] ** 2, s[0] ** 2 + s[2] ** 2, s[0] ** 2 + s[1] ** 2]))
+    r, h = size[0], size[1]
+    return np.diag(m * np.asarray([r * r / 4 + h * h / 3,
+                                   r * r / 4 + h * h / 3, r * r / 2]))
+
+
+def synthetic_objects() -> tuple[ObjectSpec, ...]:
+    """The five free objects of the AR scene. Each object's mass is spread
+    over its geoms by volume; CoM and inertia (about the CoM, object frame)
+    follow from the solid geoms and the parallel-axis theorem."""
+    out = []
+    for name, mass, parts in _OBJECTS:
+        geoms = []
+        for gtype, size, pos in parts:
+            geoms.append(Geom(
+                body=0, gtype=gtype, size=np.asarray(size, np.float64),
+                pos=np.asarray(pos, np.float64),
+                quat=np.asarray([1.0, 0.0, 0.0, 0.0]),
+                friction=np.asarray([1.0, 0.1, 0.1]), condim=3,
+                margin=GEOM_MARGIN))
+        vol = np.asarray([_geom_volume(g.gtype, g.size) for g in geoms])
+        m = mass * vol / vol.sum()
+        com = np.sum(m[:, None] * np.stack([g.pos for g in geoms]), 0) / mass
+        inertia = np.zeros((3, 3))
+        for g, mi in zip(geoms, m):
+            d = g.pos - com
+            inertia += _geom_inertia(g.gtype, g.size, mi) + mi * (
+                np.eye(3) * (d @ d) - np.outer(d, d))
+        geoms = [dataclasses.replace(g, mass=float(mi))
+                 for g, mi in zip(geoms, m)]
+        out.append(ObjectSpec(name=name, geoms=tuple(geoms), mass=mass,
+                              com=com, inertia=inertia))
+    return tuple(out)
 
 
 def standing_pose(spec: HumanoidSpec) -> tuple[np.ndarray, np.ndarray]:

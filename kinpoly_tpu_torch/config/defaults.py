@@ -1,8 +1,9 @@
 """UHC configuration: the repo's UHC configs (``kinpoly_tpu/config/yaml/
 uhc.yml`` and ``uhc_quatv2.yml``) as a dataclass with the adaptive schedules
 and the training config derived from them (port of
-``kinpoly_tpu/config/config.py`` ``UHCConfig``), and the per-joint
-stable-PD table (port of ``kinpoly_tpu/config/defaults.py``).
+``kinpoly_tpu/config/config.py`` ``UHCConfig``), the kinematic policy's
+(``kin_poly.yml``, ``KinPolyConfig``), and the per-joint stable-PD table
+(port of ``kinpoly_tpu/config/defaults.py``).
 
 The defaults below are copied from uhc.yml and ``NAMED_CONFIGS`` holds what
 each other config changes (the port reads no YAML); a test holds each
@@ -207,3 +208,89 @@ class UHCConfig:
             policy_htype=self.policy_htype,
             sampling_temp=self.sampling_temp, seed=self.seed,
             save_model_interval=self.save_model_interval)
+
+
+_KIN_MODEL_SPECS = dict(model_v=1, rnn_hdim=1024, mlp_hsize=[1024, 512, 256],
+                        mlp_htype="relu", w_rp=50.0, w_rr=50.0, w_p=1.0,
+                        w_v=1.0, w_ee=10.0, w_op=1.0, w_or=10.0)
+_KIN_POLICY_SPECS = dict(
+    policy_v=1, log_std=-3.2, fix_std=True, gamma=0.95, tau=0.95,
+    policy_lr=1.0e-5, value_lr=3.0e-4, clip_epsilon=0.2,
+    min_batch_size=10000, reward_id="dynamic_supervision_v1",
+    max_iter_num=20000, save_model_interval=50, rl_update=True,
+    init_update=False, step_update=True, full_update=False,
+    sampling_temp=0.3, sampling_freq=0.5, num_init_update=3,
+    num_step_update=20, num_optim_epoch=10, body_diff_thresh=10.0,
+    body_diff_gt_thresh=12.0,
+    reward_weights=dict(w_hp=0.15, w_hq=0.15, w_p=0.2, w_jp=0.2,
+                        w_act_p=0.2, w_act_v=0.1, k_hp=45, k_hq=45, k_p=50,
+                        k_jp=50, k_act_p=5, k_act_v=0.005))
+
+
+@dataclass(frozen=True)
+class KinPolyConfig:
+    """The kinematic policy's configuration, kin_poly.yml field for field
+    (``model_specs``/``policy_specs`` as the YAML's dicts), and its
+    ``name`` (the output directory's)."""
+    name: str = "kin_poly"
+    seed: int = 4
+    fr_num: int = 100
+    use_of: bool = False
+    use_head: bool = True
+    use_action: bool = True
+    use_vel: bool = False
+    use_context: bool = False
+    use_obj: bool = True
+    smooth: bool = True
+    has_z: bool = True
+    add_noise: bool = True
+    noise_std: float = 0.01
+    lr: float = 5.0e-4
+    num_epoch: int = 10000
+    batch_size: int = 256
+    model_specs: dict = field(default_factory=lambda: dict(_KIN_MODEL_SPECS))
+    policy_specs: dict = field(default_factory=lambda: dict(_KIN_POLICY_SPECS))
+    n_envs: int = 64
+    rollout_steps: int = 156
+
+    def out_dir(self, out_root: str = "results") -> str:
+        return os.path.join(out_root, "statear", self.name)
+
+    def model_dir(self, out_root: str = "results") -> str:
+        """Where the AR trainer's ``iter_*.p`` checkpoints are."""
+        return os.path.join(self.out_dir(out_root), "models")
+
+    def traj_ar_config(self):
+        from kinpoly_tpu_torch.models.traj_ar import TrajARConfig
+
+        ms = self.model_specs
+        return TrajARConfig(
+            use_of=self.use_of, use_head=self.use_head,
+            use_action=self.use_action, use_vel=self.use_vel,
+            use_context=self.use_context, has_z=self.has_z,
+            pose_delta=ms.get("pose_delta", False),
+            add_noise=self.add_noise, noise_std=self.noise_std,
+            model_v=ms.get("model_v", 1), rnn_hdim=ms.get("rnn_hdim", 1024),
+            of_dim=ms.get("cnn_fdim", 512),
+            mlp_hsize=tuple(ms.get("mlp_hsize", [1024, 512, 256])),
+            mlp_htype=ms.get("mlp_htype", "relu"),
+            w_rp=ms.get("w_rp", 50.0), w_rr=ms.get("w_rr", 50.0),
+            w_p=ms.get("w_p", 1.0), w_v=ms.get("w_v", 1.0),
+            w_ee=ms.get("w_ee", 10.0), w_op=ms.get("w_op", 1.0),
+            w_or=ms.get("w_or", 10.0))
+
+    def reward_weights(self):
+        from kinpoly_tpu_torch.envs.humanoid_ar import ARRewardWeights
+
+        rw = self.policy_specs.get("reward_weights", {})
+        return ARRewardWeights(
+            reward_id=self.policy_specs.get("reward_id",
+                                            "dynamic_supervision_v1"),
+            w_hp=rw.get("w_hp", 0.15), w_hq=rw.get("w_hq", 0.15),
+            w_p=rw.get("w_p", 0.2), w_jp=rw.get("w_jp", 0.2),
+            w_act_p=rw.get("w_act_p", 0.2), w_act_v=rw.get("w_act_v", 0.1),
+            w_hv=rw.get("w_hv", 0.05),
+            k_hp=rw.get("k_hp", 45.0), k_hq=rw.get("k_hq", 45.0),
+            k_p=rw.get("k_p", 50.0), k_jp=rw.get("k_jp", 50.0),
+            k_act_p=rw.get("k_act_p", 5.0), k_act_v=rw.get("k_act_v", 0.005),
+            k_rp=rw.get("k_rp", 0.1), k_rq=rw.get("k_rq", 0.1))

@@ -156,13 +156,15 @@ class StepInfo(NamedTuple):
     reward_info: torch.Tensor   # (N, 5) reward components
 
 
-def select(mask: torch.Tensor, a: EnvState, b: EnvState) -> EnvState:
-    """Per env: `a` where mask, else `b`."""
-    def pick(x, y):
-        return torch.where(mask.reshape(mask.shape + (1,) * (x.dim() - 1)), x, y)
-    return EnvState(sim=eng.SimState(*(pick(x, y) for x, y in zip(a.sim, b.sim))),
-                    **{f: pick(getattr(a, f), getattr(b, f))
-                       for f in EnvState._fields if f != "sim"})
+def select(mask: torch.Tensor, a, b):
+    """Per env: `a` where mask, else `b`, through nested NamedTuples (an
+    EnvState and its SimState; None leaves, such as the object state of a
+    model without movable objects, stay None)."""
+    if a is None:
+        return None
+    if isinstance(a, tuple):
+        return type(a)(*(select(mask, x, y) for x, y in zip(a, b)))
+    return torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - 1)), a, b)
 
 
 class HumanoidImEnv:

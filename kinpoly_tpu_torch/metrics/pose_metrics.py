@@ -11,12 +11,16 @@ ground-truth qpos trajectory (T, 76) on one physics model:
 - penetration (mm): per frame, the deepest floor penetration beyond the
   margin of each body's contact candidates, summed over bodies, x 1000
 
-The per-action success rules of the JAX module need objects in the engine
-and are not here.
+and the per-action success rules (``action_success``): push moves the box
+over 0.1 m; sit touches the chair with the hips or the lower spine; avoid
+keeps bodies 0-11 off the Can and ends within 0.5 m of the ground-truth
+head; step touches the step with a foot and raises the pelvis over 0.1 m;
+a take that needed a fail-safe teleport fails.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from kinpoly_tpu_torch.core import tmath
@@ -134,3 +138,73 @@ def evaluate_pair(model, qpos_pred: torch.Tensor, qpos_gt: torch.Tensor,
         pen_pred=penetration(model, qpos_pred),
         pen_gt=penetration(model, qpos_gt),
     )
+
+
+# the success rules' bodies (spec body order): sit uses Pelvis, the hips,
+# Torso and Spine against the chair; avoid bodies 0-11 against the Can;
+# step the ankles and toes against the step
+ACTIONS = ("sit", "push", "avoid", "step")
+_SIT_BODIES = (0, 1, 5, 9, 10)
+_AVOID_BODIES = tuple(range(12))
+_STEP_BODIES = (3, 4, 7, 8)
+# the object each action is about, by name
+ACTION_OBJECT_NAMES = {"sit": "chair", "push": "box", "avoid": "Can",
+                       "step": "step"}
+
+
+def action_object_indices(spec) -> np.ndarray:
+    """(4,) object index per action in ACTIONS order, by the spec's object
+    names (all four must be there)."""
+    names = [o.name for o in spec.objects]
+    missing = [n for n in ACTION_OBJECT_NAMES.values() if n not in names]
+    if missing:
+        raise ValueError(f"scene lacks interactable objects {missing}: {names}")
+    return np.asarray([names.index(ACTION_OBJECT_NAMES[a]) for a in ACTIONS],
+                      np.int64)
+
+
+def _contact_frames(model, qpos_seq, obj_seq, bodies, obj_idx, verts,
+                    vert_body, margin: float = 0.005) -> torch.Tensor:
+    """(T,) bool: a candidate vert of `bodies` within `margin` of a geom of
+    object `obj_idx` (signed distance)."""
+    res = fklib.fk(model.st, qpos_seq)
+    world = res.xpos[..., vert_body, :] + tmath.quat_rot_vec(
+        res.xquat[..., vert_body, :], verts)
+    dist = ct.object_point_distances(model.scene, obj_seq, world)[0]
+    sel_g = model.scene.obj == obj_idx
+    sel_p = torch.isin(vert_body, torch.as_tensor(bodies, device=vert_body.device))
+    d = dist[:, sel_g][:, :, sel_p]
+    return (d <= margin).flatten(1).any(dim=-1)
+
+
+def action_success(model, qpos_pred: torch.Tensor, obj_seq: torch.Tensor,
+                   action: str, head_pose_pred=None, head_pose_gt=None,
+                   fail_safe_used: bool = False) -> bool:
+    """The per-action success of one take. qpos_pred (T, 76); obj_seq
+    (T, n_obj, 7) simulated object poses, or (n_obj, 7) held for the take;
+    contacts are tested at the model's candidate vertices."""
+    verts, vert_body = model.cand_verts, model.cand_body
+    if obj_seq.dim() == 2:
+        obj_seq = obj_seq.expand((qpos_pred.shape[0],) + obj_seq.shape)
+    obj_of = dict(zip(ACTIONS, (int(i) for i in
+                                action_object_indices(model.spec))))
+    if action == "push":
+        box = obj_seq[:, obj_of["push"], :3]
+        succ = bool(torch.linalg.norm(box - box[0], dim=-1).max() > 0.1)
+    elif action == "sit":
+        succ = bool(_contact_frames(model, qpos_pred, obj_seq, _SIT_BODIES,
+                                    obj_of["sit"], verts, vert_body).any())
+    elif action == "avoid":
+        hit = _contact_frames(model, qpos_pred, obj_seq, _AVOID_BODIES,
+                              obj_of["avoid"], verts, vert_body)
+        drift = float(torch.linalg.norm(head_pose_pred[-1, :3]
+                                        - head_pose_gt[-1, :3]))
+        succ = (not bool(hit.any())) and drift <= 0.5
+    elif action == "step":
+        hit = _contact_frames(model, qpos_pred, obj_seq, _STEP_BODIES,
+                              obj_of["step"], verts, vert_body)
+        raise_ = qpos_pred[:, 2] - qpos_pred[0, 2]
+        succ = bool(hit.any()) and bool((raise_ > 0.1).any())
+    else:   # no action
+        succ = True
+    return succ and not fail_safe_used

@@ -143,11 +143,22 @@ class PolicyMCP(_StdHead):
 def init_flax_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fresh parameters as flax initialises them: every kernel lecun-normal
     (a normal truncated at 2 sigma, variance 1 / fan_in; the primitive
-    bank's (P, in, out) weights per primitive, fan_in = in), every bias 0,
-    ``log_std`` at its initial value. Draws from `generator`, which must
-    live on the parameters' device."""
+    bank's (P, in, out) weights per primitive, fan_in = in; a GRU's input
+    kernels per gate), a GRU's recurrent kernels orthogonal per gate,
+    every bias 0, ``log_std`` at its initial value. Draws from
+    `generator`, which must live on the parameters' device."""
     for m in module.modules():
-        if isinstance(m, nn.Linear):
+        if isinstance(m, (nn.GRU, nn.GRUCell)):
+            for name, w in m.named_parameters():
+                if name.startswith("bias"):
+                    w.zero_()
+                    continue
+                for g in w.chunk(3, dim=0):       # the r, z, n gates
+                    if name.startswith("weight_ih"):
+                        _lecun_normal_(g, g.shape[1], generator)
+                    else:
+                        nn.init.orthogonal_(g, generator=generator)
+        elif isinstance(m, nn.Linear):
             _lecun_normal_(m.weight, m.in_features, generator)
             m.bias.zero_()
         elif isinstance(m, PrimitiveBank):

@@ -1,5 +1,6 @@
 """Read and write UHC checkpoints (``results/motion_im/uhc/models/iter_*.p``)
-in the JAX package's layout.
+in the JAX package's layout, and read the kinematic policy's
+(``results*/statear/kin_poly/models/iter_*.p``).
 
 The checkpoints are plain pickles of numpy arrays: flax parameter trees for
 the policy and the value net, and a ``kinpoly_tpu.rl.running_norm.RunningNorm``.
@@ -12,6 +13,9 @@ Flax ``Dense`` kernels (in, out) become torch ``Linear`` weights (out, in)
 and back; the primitive bank's stacked (P, in, out) weights and a learnable
 ``log_std`` keep their layout. ``policy_params``/``value_params`` give the
 flax trees (nested dicts of numpy arrays) that the port's trainer saves.
+A flax ``GRUCell`` (``ir/iz/in`` with biases, ``hr/hz`` without, ``hn``
+with) becomes a torch GRU's stacked (r, z, n) weights with zero hidden
+biases on r and z (``trajar_from_jax``).
 """
 
 from __future__ import annotations
@@ -118,12 +122,53 @@ def value_params(sd: dict) -> dict:
 def load_uhc_checkpoint(path: str) -> dict:
     """{"policy": state dict, "value": state dict, "norm": RunningNorm of
     tensors as saved (float32 from the JAX trainer), "epoch": int,
-    "success_ewma"/"seen": the clip mining history or None} from a UHC
-    checkpoint."""
+    "success_ewma"/"seen": the clip mining history or None, "cfg": the
+    trainer's config as a dict or None} from a UHC checkpoint."""
     blob = read_checkpoint(path)
     count, mean, m2 = blob["norm"]
     return dict(policy=policy_state_dict(blob["policy_params"]),
                 value=value_state_dict(blob["value_params"]),
                 norm=RunningNorm(_t(count), _t(mean), _t(m2)),
                 epoch=int(blob["epoch"]),
-                success_ewma=blob.get("success_ewma"), seen=blob.get("seen"))
+                success_ewma=blob.get("success_ewma"), seen=blob.get("seen"),
+                cfg=blob.get("cfg"))
+
+
+def _gru(prefix: str, d: dict, suffix: str = "") -> dict:
+    """flax GRUCell params -> torch GRUCell (suffix "") or single-layer GRU
+    (suffix "_l0") state dict entries."""
+    w_ih = np.concatenate([np.asarray(d[g]["kernel"]).T for g in ("ir", "iz", "in")])
+    w_hh = np.concatenate([np.asarray(d[g]["kernel"]).T for g in ("hr", "hz", "hn")])
+    b_ih = np.concatenate([np.asarray(d[g]["bias"]) for g in ("ir", "iz", "in")])
+    b_hn = np.asarray(d["hn"]["bias"])
+    b_hh = np.concatenate([np.zeros_like(b_hn), np.zeros_like(b_hn), b_hn])
+    return {f"{prefix}.weight_ih{suffix}": _t(w_ih),
+            f"{prefix}.weight_hh{suffix}": _t(w_hh),
+            f"{prefix}.bias_ih{suffix}": _t(b_ih),
+            f"{prefix}.bias_hh{suffix}": _t(b_hh)}
+
+
+def trajar_from_jax(params: dict) -> dict:
+    """flax TrajARNet params -> the state dict of ``traj_ar.TrajARNet``."""
+    p = params["params"]
+    sd = _gru("context_gru", p["context_gru"], "_l0")
+    sd.update(_mlp("context_mlp", p["context_mlp"]))
+    sd.update(_dense("context_fc", p["context_fc"]))
+    if "action_gru" in p:
+        sd.update(_gru("action_gru", p["action_gru"]))
+    sd.update(_mlp("action_mlp", p["action_mlp"]))
+    sd.update(_dense("action_fc", p["action_fc"]))
+    return sd
+
+
+def load_ar_checkpoint(path: str) -> dict:
+    """{"policy": TrajARNet state dict, "value": ``nets.Value`` state dict,
+    "cc": the jointly tuned UHC controller's ``nets.PolicyMCP``/
+    ``PolicyGaussian`` state dict or None, "epoch": int, "freq": the
+    per-take success history} from a kinematic-policy checkpoint."""
+    blob = read_checkpoint(path)
+    cc = blob.get("cc_params")
+    return dict(policy=trajar_from_jax(blob["params"]),
+                value=value_state_dict(blob["value_params"]),
+                cc=None if cc is None else policy_state_dict(cc),
+                epoch=int(blob["epoch"]), freq=blob.get("freq") or {})

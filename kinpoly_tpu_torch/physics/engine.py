@@ -1,7 +1,7 @@
 """The batched humanoid simulation engine (port of
-``kinpoly_tpu/physics/engine.py``, the UHC env's path): stable-PD control,
-implicit residual force control, soft floor contacts and joint limits,
-semi-implicit Euler.
+``kinpoly_tpu/physics/engine.py``): stable-PD control, implicit residual
+force control, soft floor, joint-limit and object contacts, semi-implicit
+Euler, and the scene objects as static geometry or as free bodies.
 
 Per substep: FK and the motion subspaces, RNEA bias force, the two SPD
 systems M + Kd dt and M, the stable-PD solve (one right-hand side), planned
@@ -19,13 +19,22 @@ makes "dense" the default solver). On a CUDA device the kernels always run;
 CPU tensors take their plain versions (``ltdl.factor``/``ltdl.solve``,
 ``chol.solve_only``, ``contact.psor_plain``).
 
-Not ported here (AR-only or opt-in in the JAX package): movable objects,
-split object-floor rows, active-set compaction, meta-PD gains, explicit
-RFC and the contacts-off substep.
+Objects (``with_objects``): static geometry posed per control step
+(``control_step(..., obj_qpos=)``), or with ``movable_objects`` free rigid
+bodies in ``SimState.obj_qpos/obj_qvel``, coupled to the contact rows
+through the object-side Delassus block and integrated after the contact
+solve. Their object-floor rows stay out of the humanoid's Jacobian and mass
+solve (``split_of``), and ``compact_k = (K_h, K_o)`` gathers the deepest
+active blocks of each pool before the mass solve (the AR scripts' (16, 8):
+K2 at 1 + 3 x 16 columns, K3 over 24 blocks).
+
+Not ported here (opt-in in the JAX package): meta-PD gains, explicit RFC
+and the contacts-off substep.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -44,6 +53,9 @@ from kinpoly_tpu_torch.physics import chol_cuda, ltdl, ltdl_cuda, pgs_cuda
 class SimState(NamedTuple):
     qpos: torch.Tensor   # (..., 76)
     qvel: torch.Tensor   # (..., 75)
+    # free-body object state (movable_objects only)
+    obj_qpos: torch.Tensor = None   # (..., n_obj, 7)
+    obj_qvel: torch.Tensor = None   # (..., n_obj, 6): (v_com, omega), world
 
 
 @dataclass(frozen=True)
@@ -72,6 +84,16 @@ class ControlTensors(NamedTuple):
 
 
 @dataclass(frozen=True)
+class ObjDynParams:
+    """Free-body dynamics of the scene objects, as tensors."""
+    mass: torch.Tensor           # (n_obj,)
+    com: torch.Tensor            # (n_obj, 3) object-frame CoM
+    inertia: torch.Tensor        # (n_obj, 3, 3) about the CoM, object frame
+    floor_verts: torch.Tensor    # (V, 3) object-frame floor candidates
+    floor_vert_obj: torch.Tensor  # (V,) int64
+
+
+@dataclass(frozen=True)
 class PhysicsModel:
     """Static bundle: spec, its tensors, dynamics and packing tables,
     control table, contact candidates, all on one device in one dtype."""
@@ -85,7 +107,18 @@ class PhysicsModel:
     cand_body: torch.Tensor      # (N,) int64
     jnt_lo: torch.Tensor         # (69,)
     jnt_hi: torch.Tensor         # (69,)
-    row_live: torch.Tensor       # (3 * (contact_top_k + limit_top_k),) bool
+    scene: ct.SceneTensors | None = None   # the objects' geoms
+    # simulate the objects as free bodies (else static geometry posed per
+    # control step)
+    movable_objects: bool = False
+    obj_dyn: ObjDynParams | None = None
+    obj_floor_top_k: int = 10
+    object_top_k: int = 8
+    # object-floor rows out of the humanoid Jacobian and mass solve
+    split_of: bool = True
+    # per-env top-(K_h, K_o) gather of the humanoid-side and object-floor
+    # contact blocks before the mass solve; None keeps every block
+    compact_k: tuple | None = None
     n_substeps: int = 15
     contact_top_k: int = 12
     limit_top_k: int = 6
@@ -121,10 +154,13 @@ class PhysicsModel:
 
 
 def build_model(spec: HumanoidSpec, ctrl: ControlParams, device=None,
-                dtype: torch.dtype = torch.float32, **kw) -> PhysicsModel:
+                dtype: torch.dtype = torch.float32,
+                with_objects: bool = False, **kw) -> PhysicsModel:
     """The physics model on `device` (CUDA unless the caller passes
     another device). ``use_pallas_chol=True`` makes ``solver="dense"`` the
-    default; ``"pallas_ltdl"`` is accepted as a name of ``"ltdl"``."""
+    default; ``"pallas_ltdl"`` is accepted as a name of ``"ltdl"``.
+    ``with_objects`` adds the spec's objects (``movable_objects=True``:
+    as free bodies)."""
     device = resolve_device(device)
     if kw.get("use_pallas_chol"):
         kw.setdefault("solver", "dense")
@@ -136,10 +172,18 @@ def build_model(spec: HumanoidSpec, ctrl: ControlParams, device=None,
         spec, per_body=ct.FOOT_BODIES, default_k=4)
     tables = dyn.build_tables(spec, dtype, device)
     t = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
-    k_c = kw.get("contact_top_k", 12)
-    k_l = kw.get("limit_top_k", 6)
-    row_live = np.concatenate([np.ones(3 * k_c, bool),
-                               np.tile([True, False, False], k_l)])
+    scene = (ct.scene_from_spec(spec) if with_objects and spec.objects
+             else None)
+    movable = bool(kw.get("movable_objects")) and scene is not None
+    kw["movable_objects"] = movable
+    if movable:
+        fv, fvo = ct.object_floor_verts(scene)
+        kw["obj_dyn"] = ObjDynParams(
+            mass=t([o.mass for o in spec.objects]),
+            com=t(np.stack([o.com for o in spec.objects])),
+            inertia=t(np.stack([o.inertia for o in spec.objects])),
+            floor_verts=t(fv),
+            floor_vert_obj=torch.as_tensor(fvo, device=device))
     return PhysicsModel(
         spec=spec, st=spec_tensors(spec, dtype, device), tables=tables,
         topo=ltdl.build_topo(tables.dof_parent, dtype, device),
@@ -149,7 +193,8 @@ def build_model(spec: HumanoidSpec, ctrl: ControlParams, device=None,
         cand_verts=t(cand_verts),
         cand_body=torch.as_tensor(cand_body, device=device),
         jnt_lo=t(spec.jnt_range[:, 0]), jnt_hi=t(spec.jnt_range[:, 1]),
-        row_live=torch.as_tensor(row_live, device=device), **kw)
+        scene=(None if scene is None
+               else ct.scene_tensors(scene, dtype, device)), **kw)
 
 
 def compute_torque(model: PhysicsModel, qpos, qvel, ctrl_joint, base_pos,
@@ -195,31 +240,127 @@ def integrate(qpos, qvel, dt):
     return torch.cat([pos, quat, hinge], dim=-1)
 
 
-def build_contact_plan(model: PhysicsModel, qpos: torch.Tensor) -> ct.ContactPlan:
-    """Candidate index sets for one control step, from one FK at the
-    step-start pose: ``plan_oversample`` times each per-substep top-K."""
-    ov = model.plan_oversample
-    fk_res = fklib.fk(model.st, qpos)
+@functools.lru_cache(maxsize=None)
+def _row_live(n_contact: int, n_limit: int, n_of: int,
+              device: torch.device) -> torch.Tensor:
+    """(3 (n_contact + n_limit + n_of),) bool: the rows that carry a
+    constraint (a limit block has only its normal row)."""
+    return torch.as_tensor(np.concatenate([
+        np.ones(3 * n_contact, bool), np.tile([True, False, False], n_limit),
+        np.ones(3 * n_of, bool)]), device=device)
+
+
+def _compact_rows(compact_k, J, depth, active, friction, row_live, Jo,
+                  obj_rows):
+    """Active-set compaction: a per-env gather of the top K_h humanoid-side
+    blocks (the rows of J: contacts and joint limits) and, separately, the
+    top K_o object-floor blocks, ranked actives first and deepest first,
+    before the mass solve, the Delassus build and the PSOR. Ties (parked
+    objects have equal depths) go to the lower index, as ``jax.lax.top_k``
+    breaks them. ``row_live`` becomes per env."""
+    K_h, K_o = compact_k
+    n_hb = J.shape[-2] // 3
+    n_ob = depth.shape[-1] - n_hb
+    K_h, K_o = min(K_h, n_hb), min(K_o, n_ob)
+
+    def top_idx(d, a, k):
+        return ct.top_k(a.to(d.dtype) * 1e3 + d, k)[1]
+
+    idx_h = top_idx(depth[..., :n_hb], active[..., :n_hb], K_h)
+    idx = idx_h
+    if K_o:
+        idx = torch.cat([idx_h, n_hb + top_idx(depth[..., n_hb:],
+                                               active[..., n_hb:], K_o)], dim=-1)
+
+    def g3(x, ix):                                   # (..., 3 nb, d) blocks
+        xb = x.reshape(x.shape[:-2] + (-1, 3, x.shape[-1]))
+        out = torch.gather(xb, -3, ix[..., None, None].expand(
+            ix.shape + (3, x.shape[-1])))
+        return out.reshape(out.shape[:-3] + (-1, x.shape[-1]))
+
+    def rows(x):                                     # (..., 3 nb) rows
+        return g3(x[..., None], idx)[..., 0]
+
+    J = g3(J, idx_h)
+    depth, active, friction = (torch.gather(x, -1, idx)
+                               for x in (depth, active, friction))
+    row_live = rows(row_live.expand(idx.shape[:-1] + row_live.shape[-1:]))
+    if Jo is not None:
+        Jo, obj_rows = g3(Jo, idx), rows(obj_rows)
+    return J, depth, active, friction, row_live, Jo, obj_rows
+
+
+def _cand_world(model: PhysicsModel, fk_res) -> torch.Tensor:
     cb = model.cand_body
-    world = fk_res.xpos[..., cb, :] + tmath.quat_rot_vec(
+    return fk_res.xpos[..., cb, :] + tmath.quat_rot_vec(
         fk_res.xquat[..., cb, :], model.cand_verts)
+
+
+def build_contact_plan(model: PhysicsModel, qpos: torch.Tensor,
+                       obj_qpos: torch.Tensor | None = None) -> ct.ContactPlan:
+    """Candidate index sets for one control step, from one FK at the
+    step-start pose: ``plan_oversample`` times each per-substep top-K (the
+    object pairs and the object-floor verts given `obj_qpos`)."""
+    ov = model.plan_oversample
+    world = _cand_world(model, fklib.fk(model.st, qpos))
     n_cand = model.cand_verts.shape[0]
     floor_idx = ct.top_k(-world[..., 2], min(ov * model.contact_top_k, n_cand))[1]
+    obj_idx = of_idx = None
+    if model.scene is not None and obj_qpos is not None:
+        dist = ct.object_point_distances(model.scene, obj_qpos, world)[0]
+        dist = dist.flatten(-2)
+        obj_idx = ct.top_k(-dist, min(ov * model.object_top_k,
+                                      dist.shape[-1]))[1]
+    if model.movable_objects and obj_qpos is not None:
+        od = model.obj_dyn
+        op = obj_qpos[..., od.floor_vert_obj, :]
+        z = (op[..., :3] + tmath.quat_rot_vec(op[..., 3:7], od.floor_verts))[..., 2]
+        of_idx = ct.top_k(-z, min(ov * model.obj_floor_top_k, z.shape[-1]))[1]
     q = qpos[..., 7:]
     depth_all = torch.maximum(model.jnt_lo - q, q - model.jnt_hi)
     lim_idx = ct.top_k(depth_all, min(ov * model.limit_top_k,
                                       depth_all.shape[-1]))[1]
-    return ct.ContactPlan(floor_idx=floor_idx, lim_idx=lim_idx)
+    return ct.ContactPlan(floor_idx=floor_idx, lim_idx=lim_idx,
+                          obj_idx=obj_idx, of_idx=of_idx)
+
+
+class _ObjFrames(NamedTuple):
+    """Per-substep object terms, built once for every object."""
+    com_w: torch.Tensor    # (..., n_obj, 3) world CoM
+    Iw_inv: torch.Tensor   # (..., n_obj, 3, 3) world inverse inertia
+    minv: torch.Tensor     # (n_obj,)
+    a_smooth: torch.Tensor  # (..., n_obj, 6) gravity and gyroscopic accel
+
+
+def _obj_frames(od: ObjDynParams, obj_qpos, obj_qvel) -> _ObjFrames:
+    oq = obj_qpos[..., 3:7]
+    Rm = tmath.quat_to_mat(oq)
+    com_w = obj_qpos[..., :3] + tmath.quat_rot_vec(oq, od.com)
+    Iw = Rm @ od.inertia @ Rm.transpose(-1, -2)
+    Iw_inv = ct._inv3x3(Iw)
+    w = obj_qvel[..., 3:]
+    gyro = -torch.einsum("...nij,...nj->...ni", Iw_inv, torch.linalg.cross(
+        w, torch.einsum("...nij,...nj->...ni", Iw, w)))
+    gvec = torch.zeros_like(com_w)
+    gvec[..., 2] = -9.81
+    return _ObjFrames(com_w=com_w, Iw_inv=Iw_inv,
+                      minv=1.0 / torch.clamp(od.mass, min=1e-9),
+                      a_smooth=torch.cat([gvec, gyro], dim=-1))
 
 
 def substep(model: PhysicsModel, state: SimState, ctrl_joint, vf, base_pos,
-            base_rot, plan: ct.ContactPlan | None = None) -> SimState:
+            base_rot, plan: ct.ContactPlan | None = None,
+            obj_qpos: torch.Tensor | None = None) -> SimState:
     """One 450 Hz physics substep with stable-PD control and contacts.
     `plan`: the control step's candidate selection (None = rank every
-    candidate)."""
+    candidate). `obj_qpos` (..., n_obj, 7): the static objects' poses
+    (movable objects take theirs from `state`)."""
     st, tables, topo = model.st, model.tables, model.topo
     qpos, qvel = state.qpos, state.qvel
     dtype, device = qpos.dtype, qpos.device
+    movable = model.movable_objects and state.obj_qpos is not None
+    if movable:
+        obj_qpos = state.obj_qpos
 
     ks = dyn.kin_state(st, qpos)
     C = dyn.bias_force(tables, ks, qvel)
@@ -252,27 +393,79 @@ def substep(model: PhysicsModel, state: SimState, ctrl_joint, vf, base_pos,
     tau = torch.cat([rfc_implicit(model, qpos, vf, base_rot), torque], dim=-1)
 
     fk_res = ks.fk_res
+    margin, mu = model.spec.geom_margin, model.friction
     if plan is not None:
         cs = ct.floor_contacts_planned(
             model.cand_verts, model.cand_body, fk_res.xpos, fk_res.xquat,
-            plan.floor_idx, model.contact_top_k,
-            margin=model.spec.geom_margin, friction=model.friction)
+            plan.floor_idx, model.contact_top_k, margin=margin, friction=mu)
         Jl, dl, al = ct.joint_limit_contacts_planned(
             qpos, model.jnt_lo, model.jnt_hi, plan.lim_idx,
             model.limit_top_k, nv=qvel.shape[-1])
     else:
         cs = ct.floor_contacts(
             model.cand_verts, model.cand_body, fk_res.xpos, fk_res.xquat,
-            model.contact_top_k, margin=model.spec.geom_margin,
-            friction=model.friction)
+            model.contact_top_k, margin=margin, friction=mu)
         Jl, dl, al = ct.joint_limit_contacts(
             qpos, model.jnt_lo, model.jnt_hi, model.limit_top_k,
             nv=qvel.shape[-1])
+    if model.scene is not None and obj_qpos is not None:
+        if plan is not None:
+            ocs = ct.object_contacts_planned(
+                model.scene, obj_qpos, model.cand_verts, model.cand_body,
+                fk_res.xpos, fk_res.xquat, plan.obj_idx, model.object_top_k,
+                margin=margin, friction=mu)
+        else:
+            ocs = ct.object_contacts(
+                model.scene, obj_qpos, _cand_world(model, fk_res),
+                model.cand_body, model.object_top_k, margin=margin,
+                friction=mu)
+        cs = ct.merge_contacts(cs, ocs)
+    fcs = None
+    split_of = movable and model.split_of
+    if movable:
+        od = model.obj_dyn
+        if plan is not None:
+            fcs = ct.object_floor_contacts_planned(
+                obj_qpos, od.floor_verts, od.floor_vert_obj, plan.of_idx,
+                model.obj_floor_top_k, margin=margin, friction=mu)
+        else:
+            fcs = ct.object_floor_contacts(
+                obj_qpos, od.floor_verts, od.floor_vert_obj,
+                model.obj_floor_top_k, margin=margin, friction=mu)
+        if not split_of:
+            cs = ct.merge_contacts(cs, fcs)
+
     J = torch.cat([ct.contact_jacobian(cs, ks.phi, tables.anc_dof_body), Jl],
                   dim=-2)
     depth = torch.cat([cs.depth, dl], dim=-1)
     active = torch.cat([cs.active, al], dim=-1)
     friction = torch.cat([cs.friction, torch.zeros_like(dl)], dim=-1)
+    row_live = _row_live(cs.depth.shape[-1], dl.shape[-1],
+                         fcs.depth.shape[-1] if split_of else 0, device)
+    if split_of:
+        # object-floor rows after the humanoid rows: in the PSOR system,
+        # not in J (their humanoid side is identically zero)
+        depth = torch.cat([depth, fcs.depth], dim=-1)
+        active = torch.cat([active, fcs.active], dim=-1)
+        friction = torch.cat([friction, fcs.friction], dim=-1)
+
+    # the object side of every row, before compaction gathers it with J
+    Jo = obj_rows = None
+    if movable:
+        of = _obj_frames(od, obj_qpos, state.obj_qvel)
+        Jo_c, obj_rows_c = ct.object_jacobian(cs, of.com_w)
+        pad = J.shape[-2] - Jo_c.shape[-2]                 # limit rows
+        Jo = torch.nn.functional.pad(Jo_c, (0, 0, 0, pad))
+        obj_rows = torch.nn.functional.pad(obj_rows_c, (0, pad), value=-1)
+        if split_of:
+            Jo_f, obj_rows_f = ct.object_jacobian(fcs, of.com_w)
+            Jo = torch.cat([Jo, Jo_f], dim=-2)
+            obj_rows = torch.cat([obj_rows, obj_rows_f], dim=-1)
+
+    if model.compact_k is not None:
+        J, depth, active, friction, row_live, Jo, obj_rows = _compact_rows(
+            model.compact_k, J, depth, active, friction, row_live, Jo,
+            obj_rows)
 
     # one fused multi-RHS solve: [tau - C, J^T] -> [qacc_smooth, M^-1 J^T]
     B = torch.cat([(tau - C)[..., None], J.transpose(-1, -2)], dim=-1)
@@ -280,28 +473,75 @@ def substep(model: PhysicsModel, state: SimState, ctrl_joint, vf, base_pos,
     qacc = X[..., 0]
     MiJt = X[..., 1:]
 
+    extra = {}
+    if movable:
+        # the rows also see the objects' free motion: the object Delassus
+        # block J_o M_o^-1 J_o^T (rows of one object), and the object
+        # points' velocity and smooth acceleration along each row
+        n_obj = od.mass.shape[0]
+        onehot = (obj_rows[..., None] == torch.arange(
+            n_obj, device=device)).to(dtype)                  # (..., C, n_obj)
+        K_lin = Jo[..., :3] * (onehot @ of.minv)[..., None]
+        Iwi_r = torch.einsum("...rn,...nij->...rij", onehot, of.Iw_inv)
+        K_ang = torch.einsum("...rij,...rj->...ri", Iwi_r, Jo[..., 3:])
+        same = ((obj_rows[..., :, None] == obj_rows[..., None, :])
+                & (obj_rows >= 0)[..., :, None])
+        u = state.obj_qvel
+        extra = dict(
+            A_extra=(torch.cat([K_lin, K_ang], dim=-1) @ Jo.transpose(-1, -2))
+            * same,
+            vel_extra=torch.sum(Jo * (onehot @ u), dim=-1),
+            acc_smooth_extra=torch.sum(Jo * (onehot @ of.a_smooth), dim=-1))
+
     A, rhs, Dinv, Rr = ct.contact_system(J, MiJt, qacc, qvel, depth, active,
-                                         model.row_live)
-    f = pgs_cuda.pgs_solve(A, rhs, Dinv.contiguous(), Rr, friction, active,
+                                         row_live, **extra)
+    f = pgs_cuda.pgs_solve(A, rhs, Dinv.contiguous(), Rr.contiguous(),
+                           friction.contiguous(), active.contiguous(),
                            model.contact_iters)
-    qacc = qacc + torch.einsum("...vc,...c->...v", MiJt, f)
+    qacc = qacc + torch.einsum("...vc,...c->...v", MiJt, f[..., :J.shape[-2]])
+
+    obj_qpos_new, obj_qvel_new = state.obj_qpos, state.obj_qvel
+    if movable:
+        # the contact wrench about each object's CoM, then free-body
+        # semi-implicit Euler
+        w = torch.einsum("...rn,...r,...ri->...ni", onehot, f, Jo)
+        a_lin = w[..., :3] * of.minv[:, None] + of.a_smooth[..., :3]
+        a_ang = torch.einsum("...nij,...nj->...ni", of.Iw_inv, w[..., 3:]) \
+            + of.a_smooth[..., 3:]
+        u_new = u + torch.cat([a_lin, a_ang], dim=-1) * model.dt
+        if model.qvel_clip:
+            u_new = torch.clamp(u_new, -model.qvel_clip, model.qvel_clip)
+        v_origin = u_new[..., :3] + torch.linalg.cross(
+            u_new[..., 3:], obj_qpos[..., :3] - of.com_w)
+        quat_new = tmath.quat_norm(tmath.quat_mul(
+            tmath.quat_from_expmap(u_new[..., 3:] * model.dt), obj_qpos[..., 3:7]))
+        obj_qpos_new = torch.cat([obj_qpos[..., :3] + v_origin * model.dt,
+                                  quat_new], dim=-1)
+        obj_qvel_new = u_new
 
     qvel_new = qvel + qacc * model.dt
     if model.qvel_clip:
         qvel_new = torch.clamp(qvel_new, -model.qvel_clip, model.qvel_clip)
-    return SimState(qpos=integrate(qpos, qvel_new, model.dt), qvel=qvel_new)
+    return SimState(qpos=integrate(qpos, qvel_new, model.dt), qvel=qvel_new,
+                    obj_qpos=obj_qpos_new, obj_qvel=obj_qvel_new)
 
 
 def control_step(model: PhysicsModel, state: SimState, action: torch.Tensor,
-                 expert_kin_pose: torch.Tensor,
-                 base_rot: torch.Tensor) -> SimState:
+                 expert_kin_pose: torch.Tensor, base_rot: torch.Tensor,
+                 obj_qpos: torch.Tensor | None = None) -> SimState:
     """One 30 Hz control step: ``n_substeps`` substeps under a fixed action
-    [69 joint targets, 6 residual root forces]."""
+    [69 joint targets, 6 residual root forces]. `obj_qpos` poses static
+    objects for the whole step; movable objects carry theirs in `state`."""
     c = model.ctrl
     ctrl_joint = action[..., :69] * model.ctrl_t.a_scale
     vf = action[..., 69:69 + c.vf_dim]
     base_pos = expert_kin_pose if c.action_v == 1 else model.ctrl_t.a_ref
-    plan = build_contact_plan(model, state.qpos) if model.plan_contacts else None
+    plan = None
+    if model.plan_contacts:
+        plan_obj = (state.obj_qpos if model.movable_objects
+                    and state.obj_qpos is not None else obj_qpos)
+        plan = build_contact_plan(model, state.qpos, plan_obj)
     for _ in range(model.n_substeps):
-        state = substep(model, state, ctrl_joint, vf, base_pos, base_rot, plan)
+        state = substep(model, state, ctrl_joint, vf, base_pos, base_rot, plan,
+                        obj_qpos)
     return state

@@ -1,19 +1,26 @@
-"""Where the time of UHC evaluation or training goes on the card:
-torch.profiler over a few control steps of the evaluation loop, or over one
-training iteration.
+"""Where the time of UHC evaluation or training, or of the AR evaluation,
+goes on the card: torch.profiler over a few control steps of an evaluation
+loop, or over one training iteration.
 
     python -m kinpoly_tpu_torch.scripts.profile_eval --steps 3 \\
         [--data data_bank/clips24.pkl] [--trace eval_trace.json]
     python -m kinpoly_tpu_torch.scripts.profile_eval --train \\
         [--data data_bank/clips24.pkl] [--n-envs 1024] [--steps 8]
+    python -m kinpoly_tpu_torch.scripts.profile_eval --ar --steps 5 \\
+        [--data data_bank/wild_takes_r5.pkl] [--ar-iter 800 --out results_r5]
 
 Evaluation: one env per take, ``--steps`` control steps. ``--train``: one
 ``train_epoch`` of ``--n-envs`` envs x ``--steps`` control steps (rollout,
-norm, GAE, PPO update) after one warm-up iteration. Prints the host wall
-time per control step, the device's busy share (union of kernel intervals
-over the profiled wall time), device activities and host-device
-synchronisations per control step, and the kernels and operators with the
-most device time. Needs a CUDA device.
+norm, GAE, PPO update) after one warm-up iteration. ``--ar``: the AR
+evaluation of ``eval_ar_policy`` (checkpoint ``--ar-iter`` under
+``--out``, the UHC controller ``--uhc-checkpoint``, one env per take of
+the wild bank by default), ``--steps`` control steps after a 2-step
+warm-up.
+
+Prints the host wall time per control step, the device's busy share
+(union of kernel intervals over the profiled wall time), device activities
+and host-device synchronisations per control step, and the kernels and
+operators with the most device time. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -82,8 +89,31 @@ def main(argv=None):
                    help="control steps (evaluation 3, training 8)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--trace", default=None, help="write a chrome trace here")
+    p.add_argument("--ar", action="store_true",
+                   help="profile the AR evaluation instead")
+    p.add_argument("--ar-iter", type=int, default=800)
+    p.add_argument("--out", default="results_r5",
+                   help="output root of the AR checkpoint")
+    p.add_argument("--uhc-checkpoint",
+                   default="results/motion_im/uhc/models/iter_13000.p")
     args = p.parse_args(argv)
 
+    if args.ar:
+        from kinpoly_tpu_torch.anim.spec import synthetic_spec
+        from kinpoly_tpu_torch.scripts import eval_ar_policy as ear
+
+        steps = args.steps or 3
+        takes = ear.get_takes(synthetic_spec(with_objects=True),
+                              args.data or "data_bank/wild_takes_r5.pkl",
+                              args.clips, args.frames)
+        ev = ear.build_eval(takes, args.ar_iter, "cuda",
+                            uhc_checkpoint=args.uhc_checkpoint,
+                            out_root=args.out)
+        ear.rollout(ev, 2)                                      # warm-up
+        profiled(lambda: ear.rollout(ev, steps), steps,
+                 f"AR evaluation, {ev.n_takes} envs x {steps} control steps",
+                 args.trace)
+        return
     takes = get_takes(args.data, args.clips, args.frames, args.seed)
     if args.train:
         steps = args.steps or 8

@@ -7,6 +7,9 @@ are absent:
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 """
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -432,3 +435,57 @@ def test_chol_kernels_at_their_shared_memory_limit(spd):
     _chol_gate(X, A, B, chol.solve_only(A, B))
     assert torch.equal(X, X2)
     _chol_gate(X3, A, B, chol.apply(L, B))
+
+
+def _chip_smoke():
+    """The repo root's chip_smoke.py as a module (its helpers)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_ar_control_step_on_the_card(cuda):
+    """One control step of the AR env's physics (five movable objects,
+    contact plan, compaction (16, 8)) on the card: 30 K1, 15 K2 at R = 1,
+    15 K2 at R = 49 and 15 K3 launches; humanoid and object state within
+    1e-3 of the CPU float64 plain path, with the box resting on each
+    env's right hand."""
+    from kinpoly_tpu_torch.config.defaults import uhc_control_params
+    from kinpoly_tpu_torch.physics import engine as eng
+
+    spec = sp.synthetic_spec(0, with_objects=True)
+    kw = dict(with_objects=True, movable_objects=True, compact_k=(16, 8))
+    card = eng.build_model(spec, uhc_control_params(spec), device=cuda, **kw)
+    cpu = eng.build_model(spec, uhc_control_params(spec), device="cpu",
+                          dtype=torch.float64, **kw)
+    rng = np.random.RandomState(9)
+    n = 8
+    q0, _ = sp.standing_pose(spec)
+    qpos = np.repeat(q0[None], n, axis=0)
+    qpos[:, 7:] += rng.uniform(-0.05, 0.05, (n, 69))
+    qvel = rng.normal(0, 0.3, (n, 75))
+    obj = np.zeros((n, 5, 7))
+    obj[:, :, 0] = (np.arange(5) + 1) * 100.0
+    obj[:, :, 1] = 100.0
+    obj[:, :, 2] = [0.38, 0.22, 0.79, 0.69, 0.37]
+    obj[:, :, 3] = 1.0
+    obj[:, 1, :3] = _chip_smoke().box_on_hand(cpu, torch.tensor(qpos)).numpy()
+    action = rng.normal(0, 0.2, (n, 75))
+    outs = []
+    for m in (card, cpu):
+        t = lambda x: torch.as_tensor(x, dtype=m.dtype, device=m.device)
+        state = eng.SimState(t(qpos), t(qvel), t(obj), t(np.zeros((n, 5, 6))))
+        native.LAUNCHES.clear()
+        s = eng.control_step(m, state, t(action), t(qpos[:, 7:]),
+                             t(np.asarray([0.7071, 0.7071, 0.0, 0.0])))
+        if m is card:
+            torch.cuda.synchronize()
+            assert dict(native.LAUNCHES) == {
+                "ltdl_factor": 30, "ltdl_solve[R=1]": 15,
+                "ltdl_solve[R=49]": 15, "pgs_solve": 15}
+        outs.append([x.double().cpu() for x in s])
+    err = max(float((a - b).abs().max()) for a, b in zip(*outs))
+    assert all(bool(torch.isfinite(x).all()) for x in outs[0])
+    assert err < 1e-3, err

@@ -1,8 +1,11 @@
 """CPU drives of the port's UHC scripts on the real bank
-(``data_bank/clips24.pkl``) at tiny sizes: what each prints and writes."""
+(``data_bank/clips24.pkl``), and of the AR evaluation on the wild bank
+(``data_bank/wild_takes_r5.pkl``), at tiny sizes: what each prints and
+writes."""
 
 import json
 import os
+import pickle
 import re
 
 import joblib
@@ -10,7 +13,7 @@ import numpy as np
 import torch
 
 from kinpoly_tpu_torch.data import banks
-from kinpoly_tpu_torch.scripts import eval_uhc, gen_states, train_uhc
+from kinpoly_tpu_torch.scripts import eval_ar_policy, eval_uhc, gen_states, train_uhc
 
 # many tiny torch ops: one intra-op thread per process keeps several test
 # workers from oversubscribing the CPU
@@ -19,6 +22,9 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CLIPS24 = os.path.join(ROOT, "data_bank/clips24.pkl")
 HARD = os.path.join(ROOT, "data_bank/hard_states_getup.pkl")
+WILD = os.path.join(ROOT, "data_bank/wild_takes_r5.pkl")
+AR_MODELS = os.path.join(ROOT, "results_r5/statear/kin_poly/models")
+UHC_CKPT = os.path.join(ROOT, "results/motion_im/uhc/models/iter_13000.p")
 
 
 def test_train_uhc_on_the_real_bank_with_hard_states(tmp_path, capsys):
@@ -79,3 +85,34 @@ def test_gen_states_writes_a_bank_both_readers_take(tmp_path, capsys):
         assert list(got) == ["qpos", "qvel"]
         assert got["qpos"].shape == (k, 76) and got["qvel"].shape == (k, 75)
         assert got["qpos"].dtype == got["qvel"].dtype == np.float32
+
+
+def test_eval_ar_policy_wild_fail_safe(tmp_path, capsys):
+    """iter_0800.p (linked into a fresh output root) with iter_13000.p as
+    the controller on the first 2 wild takes, cut to 4 frames."""
+    models = tmp_path / "statear" / "kin_poly" / "models"
+    models.parent.mkdir(parents=True)
+    os.symlink(AR_MODELS, models)
+    eval_ar_policy.main(["--device", "cpu", "--wild", "--fail-safe",
+                         "--data", WILD, "--takes", "2", "--frames", "4",
+                         "--iter", "800", "--uhc-checkpoint", UHC_CKPT,
+                         "--out", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "not found" not in out
+    assert re.search(r"2 takes, 3 control steps on cpu", out)
+    assert re.search(r"take 0 wild-sit-00 \[sit\]: pct [0-9.]+ fs \d+ root_dist", out)
+    mean = re.search(r"MEAN  (.*)", out).group(1)
+    vals = dict(kv.split(":") for kv in mean.split())
+    assert list(vals) == ["root_dist", "head_dist", "mpjpe", "accel_dist",
+                          "vel_dist", "slide_pred", "slide_gt", "pen_pred",
+                          "pen_gt", "percent", "fail_safe", "succ"]
+    assert all(np.isfinite(float(v)) for v in vals.values())
+    assert re.search(r"succ\[sit\]: [0-9.]+ \(2 takes\)", out)
+    assert re.search(r"coverage: [0-9.]+ over 2 takes", out)
+    res = tmp_path / "statear" / "kin_poly" / "results"
+    for i in range(2):
+        with open(res / f"0800_wild_take{i}_coverage_full.pkl", "rb") as f:
+            rec = pickle.load(f)
+        assert rec["action"] == "sit" and rec["pred"].shape[1] == 76
+        assert rec["obj_pose"].shape[1:] == (5, 7)
+        assert rec["gt"].shape == rec["pred"].shape
