@@ -62,6 +62,25 @@ Phases, one line each with its seconds:
               card float32 against the CPU float64 plain path (state,
               objects, reward and its six components), and the same on the
               first 4 wild takes, reported
+ 11. ar-train AR training at kin_poly.yml's full widths on the 56 takes of
+              data_bank/ar_train_56.pkl with iter_13000.p as the
+              controller: (a) a fresh warm start (train_init) of 3
+              init-state and 2 full-AR steps at batch 256, losses finite
+              and the policy moved; (b) iter_0800.p copied to a temporary
+              directory and trained on by train_ar_policy --iter 800
+              --skip-init --joint-controller for 2 composite epochs of 64
+              envs, the rollout cut from 156 to 16 control steps, launch
+              counters set to 0 just before and read just after (exactly
+              30/15/15[R=49]/15 per rollout control step); every metric
+              finite, ppo_grad_norm and ratio_dev above 0, bc_nan_frac 0,
+              the controller moved, the final checkpoint read back equal;
+              (c) 3 epochs of exp_arnet, losses finite; (d) one recorded
+              trajectory (16 envs x 16 steps) through the step-BC loss,
+              card float32 against CPU float64: loss within 1e-3 relative
+              (gated), the gradient's relative L2 error gated at 1e-2;
+              prints seconds per epoch, rollout ms per control step, PPO,
+              BC and controller update ms, ms per warm-start step and peak
+              memory
 Then a JSON line with every kernel's numbers, the card's nvidia-smi line,
 and as the last line {"ok": true, "device": {...}}. Any failure exits
 non-zero before that line; a watchdog ends the run past 10 minutes.
@@ -107,6 +126,13 @@ AR_ITER, AR_OUT = 800, "results_r5"   # results_r5/statear/kin_poly/models/
 UHC_CKPT = os.path.join("results", "motion_im", "uhc", "models", "iter_13000.p")
 AR_STEPS = 60                 # control steps of the AR phase
 AR_WILD_PARITY = 4            # wild takes in the reported AR step parity
+AR_TRAIN = os.path.join("data_bank", "ar_train_56.pkl")   # 56 takes, 9,540 frames
+AR_INIT_STEPS, AR_FULL_STEPS = 3, 2   # warm-start steps at batch 256
+AR_TRAIN_STEPS = 16           # rollout depth, cut from kin_poly.yml's 156
+AR_TRAIN_EPOCHS = 2
+ARNET_EPOCHS = 3
+AR_BC_ENVS = 16               # the step-BC parity's recorded trajectory
+STEP_LOSS_RTOL, STEP_GRAD_RTOL = 1e-3, 1e-2
 T0 = time.perf_counter()
 
 
@@ -637,6 +663,129 @@ def checkpoint_round_trip(agent) -> bool:
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+def ar_warm_start(device, here: str, takes: list) -> dict:
+    """(a) train_init from fresh weights at kin_poly.yml's widths and batch:
+    the losses, seconds per step and whether the policy moved."""
+    import torch
+    from kinpoly_tpu_torch.config.defaults import KinPolyConfig
+    from kinpoly_tpu_torch.scripts import train_ar_policy as tap
+
+    cfg = KinPolyConfig()
+    agent = tap.build_agent(takes, cfg, cfg.train_config(), device,
+                            uhc_checkpoint=os.path.join(here, UHC_CKPT))
+    start = [p.detach().clone() for p in agent.policy.net.parameters()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps, t = [], time.perf_counter()
+    for tag, i, loss, nan_frac in agent.train_init(
+            init_steps=AR_INIT_STEPS, full_steps=AR_FULL_STEPS, log_every=1):
+        now = time.perf_counter()     # the loss's float() synced the card
+        steps.append((tag, loss, nan_frac, now - t))
+        t = now
+    moved = max(float((p.detach() - s).abs().max())
+                for p, s in zip(agent.policy.net.parameters(), start))
+    return dict(steps=steps, moved=moved, batch=agent.cfg.batch_size,
+                peak=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def ar_composite_epochs(device, here: str) -> dict:
+    """(b) train_ar_policy resuming a copy of iter_0800.p with the joint
+    controller, AR_TRAIN_EPOCHS epochs at AR_TRAIN_STEPS control steps,
+    launches counted over the epochs; the metrics stream and the final
+    checkpoint read back."""
+    import shutil
+
+    import torch
+    from kinpoly_tpu_torch import native
+    from kinpoly_tpu_torch.config.defaults import KinPolyConfig
+    from kinpoly_tpu_torch.models import weights
+    from kinpoly_tpu_torch.rl.agent_ar import AgentAR
+    from kinpoly_tpu_torch.scripts import train_ar_policy as tap
+
+    cfg = KinPolyConfig()
+    with tempfile.TemporaryDirectory() as tmp:
+        mdir = cfg.model_dir(tmp)
+        os.makedirs(mdir)
+        shutil.copy(os.path.join(here, cfg.model_dir(AR_OUT),
+                                 f"iter_{AR_ITER:04d}.p"), mdir)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        native.LAUNCHES.clear()
+        AgentAR.time_phases = True
+        try:
+            agent = tap.main([
+                "--data", os.path.join(here, AR_TRAIN), "--uhc-checkpoint",
+                os.path.join(here, UHC_CKPT), "--out", tmp, "--iter",
+                str(AR_ITER), "--skip-init", "--joint-controller",
+                "--max-epochs", str(AR_ITER + AR_TRAIN_EPOCHS),
+                "--rollout-steps", str(AR_TRAIN_STEPS), "--device", "cuda"])
+            torch.cuda.synchronize()
+        finally:
+            AgentAR.time_phases = False
+        launches = dict(native.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with open(os.path.join(mdir, f"ar_{cfg.name}_metrics.jsonl")) as f:
+            metrics = [json.loads(line) for line in f]
+        ck = weights.load_ar_checkpoint(os.path.join(
+            mdir, f"iter_{AR_ITER + AR_TRAIN_EPOCHS:04d}.p"))
+    same = (ck["epoch"] == agent.epoch and ck["cc"] is not None
+            and all(torch.equal(ck[k][n].to(v.device), v)
+                    for k, m in (("policy", agent.policy.net),
+                                 ("value", agent.value), ("cc", agent.cc_policy))
+                    for n, v in m.state_dict().items()))
+    cc0, _ = tap.load_uhc(os.path.join(here, UHC_CKPT), "cpu")
+    ck0 = weights.load_ar_checkpoint(os.path.join(
+        here, cfg.model_dir(AR_OUT), f"iter_{AR_ITER:04d}.p"))
+    if ck0["cc"] is not None:
+        cc0.load_state_dict(ck0["cc"])
+    with torch.no_grad():
+        cc_moved = max(float((p.cpu() - q).abs().max()) for p, q in
+                       zip(agent.cc_policy.parameters(), cc0.parameters()))
+    return dict(agent=agent, launches=launches, metrics=metrics, same=same,
+                cc_moved=cc_moved, peak=peak)
+
+
+def step_bc_parity(agent) -> tuple[float, float]:
+    """(d) one recorded trajectory (AR_BC_ENVS envs, the agent's rollout
+    depth, sampled) through the step-BC loss and its gradient over every
+    policy parameter, card float32 against a CPU float64 copy of the
+    policy: (relative loss error, relative L2 error of the gradient)."""
+    import torch
+    from kinpoly_tpu_torch.anim.spec import spec_tensors
+    from kinpoly_tpu_torch.models.policy_ar import PolicyAR
+    from kinpoly_tpu_torch.rl import rollout_ar as roa
+
+    batch = agent._get_batch(AR_BC_ENVS)
+    ctx = agent.build_context(batch)
+    carry = roa.init_ar_rollout_state(
+        agent.env, agent.policy,
+        torch.arange(AR_BC_ENVS, device=agent.device), ctx)
+    _, traj = agent._rollout(carry, ctx, mean_action=False,
+                             cc_policy=agent.cc_policy,
+                             generator=agent.generator)
+    cpu = PolicyAR(agent.policy.spec, spec_tensors(agent.policy.spec,
+                                                   torch.float64, "cpu"),
+                   agent.policy.cfg, agent.policy.log_std)
+    cpu.net.load_state_dict(agent.policy.net.state_dict())
+    cpu.net.double()
+    out = []
+    for pol, conv in ((agent.policy, lambda x: x),
+                      (cpu, lambda x: x.detach().double().cpu())):
+        masks = conv(traj.masks)
+        prev = torch.cat([torch.ones_like(masks[:1]), masks[:-1]])
+        loss, _ = pol.step_update_loss(conv(traj.obs), prev,
+                                       conv(traj.curr_qpos), conv(traj.gt_qpos))
+        grads = torch.autograd.grad(loss, list(pol.net.parameters()),
+                                    allow_unused=True)
+        flat = torch.cat([(torch.zeros_like(p) if g is None else g).reshape(-1)
+                          .double().cpu() for g, p in
+                          zip(grads, pol.net.parameters())])
+        out.append((float(loss), flat))
+    (l32, g32), (l64, g64) = out
+    return (abs(l32 - l64) / abs(l64),
+            float(torch.linalg.norm(g32 - g64) / torch.linalg.norm(g64)))
+
+
 def main() -> None:
     watchdog = threading.Timer(WATCHDOG_S, _expire)
     watchdog.daemon = True
@@ -927,6 +1076,7 @@ def main() -> None:
         fail("a reloaded checkpoint gives other policy outputs")
     for k in kernels:
         k["launches"] = tr["launches"].get(k["name"], 0)
+        k["launches_by_path"] = {"uhc_train": k["launches"]}
     ltdl_ms = tr["ms_per_step"]
     # launches x ms at N = 2048 over the kernels of the LTDL path, per
     # control step of the training run
@@ -959,6 +1109,7 @@ def main() -> None:
     if not derr < PARITY_ATOL:
         fail(f"dense card vs CPU parity error {derr:.3g}")
     for k in kernels:
+        k["launches_by_path"]["dense_train"] = tr["launches"].get(k["name"], 0)
         if k["name"].startswith("chol_solve_only"):
             k["launches"] = tr["launches"][k["name"]]
     # launches x ms at N = 2048 over the kernels of the dense path (K4a at
@@ -1029,6 +1180,15 @@ def main() -> None:
         fail(f"non-finite AR pose metrics or success: {rows}")
     ar_k[0]["launches"] = launches["ltdl_solve[R=49]"]
     ar_k[1]["launches"] = launches["pgs_solve"]
+    for k in ar_k:
+        k["launches_by_path"] = {}
+    # the AR path's kernels by launch counter (K3 runs at 72 rows there)
+    ar_rows = {"ltdl_factor": "ltdl_factor", "ltdl_solve[R=1]": "ltdl_solve[R=1]",
+               "ltdl_solve[R=49]": "ltdl_solve[R=49]",
+               "pgs_solve[C=72]": "pgs_solve"}
+    for k in kernels + ar_k:
+        k["launches_by_path"]["ar_eval"] = launches.get(
+            ar_rows.get(k["name"], ""), 0)
     ms_of = {k["name"]: k["ms"] for k in kernels + ar_k}
     ar_kms = (30 * ms_of["ltdl_factor"] + 15 * ms_of["ltdl_solve[R=1]"]
               + 15 * ms_of["ltdl_solve[R=49]"] + 15 * ms_of["pgs_solve[C=72]"])
@@ -1052,6 +1212,90 @@ def main() -> None:
         fail(f"AR card vs CPU state error {qerr:.3g}")
     if not rerr < REWARD_ATOL:
         fail(f"AR card vs CPU reward error {rerr:.3g}")
+
+    # 11. ar-train: AR training at full widths -------------------------------
+    tp = time.perf_counter()
+    from kinpoly_tpu_torch.scripts import exp_arnet
+    from kinpoly_tpu_torch.scripts import train_ar_policy as tap
+    ar_takes = tap.get_takes(spec_o, os.path.join(here, AR_TRAIN))
+    ws = ar_warm_start(device, here, ar_takes)
+    init_s = [x[3] for x in ws["steps"] if x[0] == "init"]
+    full_s = [x[3] for x in ws["steps"] if x[0] == "full"]
+    ws_finite = all(np.isfinite(x[1]) for x in ws["steps"])
+    say("ar-train", f"(a) warm start at batch {ws['batch']} on {AR_TRAIN} "
+        f"({len(ar_takes)} takes): losses " + ", ".join(
+            f"{x[0]} {x[1]:.4g} (nan_frac {x[2]:.2f}, {x[3] * 1e3:.0f} ms)"
+            for x in ws["steps"]) + f"; init steps after the first "
+        f"{np.mean(init_s[1:]) * 1e3:.1f} ms, full steps "
+        f"{np.mean(full_s) * 1e3:.1f} ms; policy moved {ws['moved']:.3g}; "
+        f"peak memory {ws['peak']:.2f} GiB", tp)
+    if not ws_finite:
+        fail(f"non-finite warm-start loss: {ws['steps']}")
+    if not ws["moved"] > 0:
+        fail("the warm start did not move the policy")
+    del ws
+    tp = time.perf_counter()
+    ce = ar_composite_epochs(device, here)
+    n = AR_TRAIN_EPOCHS * AR_TRAIN_STEPS
+    expect = {"ltdl_factor": 30 * n, "ltdl_solve[R=1]": 15 * n,
+              "ltdl_solve[R=49]": 15 * n, "pgs_solve": 15 * n}
+    ms = ce["metrics"]
+    keys = ("reward_mean", "ppo_loss", "value_loss", "bc_loss", "cc_loss",
+            "fail_frac", "ratio_dev", "ppo_grad_norm", "adv_std",
+            "bc_nan_frac", "T_iter")
+    finite = all(k in m and np.isfinite(m[k]) for m in ms for k in keys)
+    ph = ce["agent"].phase_s
+    say("ar-train", f"(b) train_ar_policy --iter {AR_ITER} --skip-init "
+        f"--joint-controller, {AR_TRAIN_EPOCHS} epochs of 64 envs x "
+        f"{AR_TRAIN_STEPS} control steps: " + "; ".join(
+            f"epoch {m['step']}: {m['T_iter']:.2f} s, R {m['reward_mean']:.4f}, "
+            f"bc {m['bc_loss']:.4g}, ppo {m['ppo_loss']:.4g}, cc "
+            f"{m['cc_loss']:.4g}, fail {m['fail_frac']:.3f}, |r-1| "
+            f"{m['ratio_dev']:.4g}, pg {m['ppo_grad_norm']:.4g}, "
+            f"bc_nan_frac {m['bc_nan_frac']:.3f}" for m in ms)
+        + f"; per epoch: context {ph.get('context', 0) / AR_TRAIN_EPOCHS:.3f} s, "
+        f"rollout {ph.get('rollout', 0) / n * 1e3:.1f} ms per control step, "
+        f"PPO {ph.get('ppo', 0) / AR_TRAIN_EPOCHS * 1e3:.1f} ms, BC "
+        f"{ph.get('bc', 0) / AR_TRAIN_EPOCHS * 1e3:.1f} ms, controller "
+        f"{ph.get('controller', 0) / AR_TRAIN_EPOCHS * 1e3:.1f} ms; launches "
+        f"{ce['launches']} (expected {expect}); controller moved "
+        f"{ce['cc_moved']:.3g}; checkpoint read back equal {ce['same']}; "
+        f"peak memory {ce['peak']:.2f} GiB", tp)
+    if ce["launches"] != expect:
+        fail(f"AR training launches {ce['launches']} != {expect}")
+    if len(ms) != AR_TRAIN_EPOCHS or not finite:
+        fail(f"AR training metrics missing or non-finite: {ms}")
+    if not all(m["ppo_grad_norm"] > 0 and m["ratio_dev"] > 0 for m in ms):
+        fail("dead PPO: ppo_grad_norm or ratio_dev is 0")
+    if any(m["bc_nan_frac"] != 0 for m in ms):
+        fail("non-finite step-BC gradients (bc_nan_frac > 0)")
+    if not ce["cc_moved"] > 0:
+        fail("the joint controller did not move")
+    if not ce["same"]:
+        fail("the final AR checkpoint reads back different")
+    for k in kernels:
+        k["launches_by_path"]["ar_train"] = ce["launches"].get(
+            ar_rows.get(k["name"], ""), 0)
+        if k["name"] in ("ltdl_solve[R=49]", "pgs_solve[C=72]"):
+            k["launches"] = k["launches_by_path"]["ar_train"]
+    tp = time.perf_counter()
+    loss_rel, grad_rel = step_bc_parity(ce["agent"])
+    del ce
+    with tempfile.TemporaryDirectory() as tmp:
+        _, arnet_losses = exp_arnet.main([
+            "--data", os.path.join(here, AR_TRAIN), "--epochs",
+            str(ARNET_EPOCHS), "--out", tmp, "--device", "cuda"])
+    say("ar-train", f"(c) exp_arnet, {ARNET_EPOCHS} epochs of 64 windows: "
+        f"losses {[round(x, 4) for x in arnet_losses]}; (d) step-BC loss on "
+        f"one trajectory of {AR_BC_ENVS} envs x {AR_TRAIN_STEPS} steps, card "
+        f"f32 vs CPU f64: loss rel err {loss_rel:.3g} (tol {STEP_LOSS_RTOL}), "
+        f"gradient rel L2 err {grad_rel:.3g} (tol {STEP_GRAD_RTOL})", tp)
+    if len(arnet_losses) != ARNET_EPOCHS or not np.isfinite(arnet_losses).all():
+        fail(f"exp_arnet losses {arnet_losses}")
+    if not loss_rel < STEP_LOSS_RTOL:
+        fail(f"step-BC loss card vs CPU rel err {loss_rel:.3g}")
+    if not grad_rel < STEP_GRAD_RTOL:
+        fail(f"step-BC gradient card vs CPU rel L2 err {grad_rel:.3g}")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)

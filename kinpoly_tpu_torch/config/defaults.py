@@ -5,9 +5,10 @@ and the training config derived from them (port of
 (``kin_poly.yml``, ``KinPolyConfig``), and the per-joint stable-PD table
 (port of ``kinpoly_tpu/config/defaults.py``).
 
-The defaults below are copied from uhc.yml and ``NAMED_CONFIGS`` holds what
-each other config changes (the port reads no YAML); a test holds each
-against its YAML as the JAX package parses it.
+The defaults below are copied from uhc.yml and kin_poly.yml, and
+``NAMED_CONFIGS``/``NAMED_KIN_CONFIGS`` hold what each other config
+changes (the port reads no YAML); a test holds each against its YAML as
+the JAX package parses it.
 """
 
 from __future__ import annotations
@@ -227,11 +228,34 @@ _KIN_POLICY_SPECS = dict(
                         k_jp=50, k_act_p=5, k_act_v=0.005))
 
 
+_KIN_MODEL_SPECS_NO_W = {k: _KIN_MODEL_SPECS[k]
+                         for k in ("model_v", "rnn_hdim", "mlp_hsize", "mlp_htype")}
+
+# what each named kinematic-policy config changes from kin_poly.yml
+NAMED_KIN_CONFIGS = {
+    "kin_poly": {},
+    # supervised only: no dynamics regulation, the warm start's updates
+    "kin_only": dict(policy_specs=dict(policy_v=1, rl_update=False,
+                                       step_update=False, init_update=True,
+                                       full_update=True)),
+    # no action one-hot conditioning
+    "kin_poly_wo_action": dict(
+        use_action=False, model_specs=_KIN_MODEL_SPECS_NO_W,
+        policy_specs=dict(policy_v=1, rl_update=True, step_update=True)),
+}
+# configs of the JAX package that the port cannot run yet, and why
+UNPORTED_KIN_CONFIGS = {
+    "use_of": "policy_v 2 (the residual head ActionDeltaNet) and the "
+              "optical-flow features (data/video.py, models/aux_nets.py)",
+}
+
+
 @dataclass(frozen=True)
 class KinPolyConfig:
     """The kinematic policy's configuration, kin_poly.yml field for field
     (``model_specs``/``policy_specs`` as the YAML's dicts), and its
-    ``name`` (the output directory's)."""
+    ``name`` (the output directory's). ``KinPolyConfig.named(name)`` gives
+    one of ``NAMED_KIN_CONFIGS``."""
     name: str = "kin_poly"
     seed: int = 4
     fr_num: int = 100
@@ -252,6 +276,17 @@ class KinPolyConfig:
     policy_specs: dict = field(default_factory=lambda: dict(_KIN_POLICY_SPECS))
     n_envs: int = 64
     rollout_steps: int = 156
+
+    @classmethod
+    def named(cls, name: str) -> "KinPolyConfig":
+        if name in UNPORTED_KIN_CONFIGS:
+            raise ValueError(f"config {name!r} is not ported: it needs "
+                             f"{UNPORTED_KIN_CONFIGS[name]}")
+        if name not in NAMED_KIN_CONFIGS:
+            raise ValueError(f"unknown kinematic-policy config {name!r}; "
+                             f"available: {sorted(NAMED_KIN_CONFIGS)}")
+        return cls(name=name, **{k: dict(v) if isinstance(v, dict) else v
+                                 for k, v in NAMED_KIN_CONFIGS[name].items()})
 
     def out_dir(self, out_root: str = "results") -> str:
         return os.path.join(out_root, "statear", self.name)
@@ -294,3 +329,32 @@ class KinPolyConfig:
             k_p=rw.get("k_p", 50.0), k_jp=rw.get("k_jp", 50.0),
             k_act_p=rw.get("k_act_p", 5.0), k_act_v=rw.get("k_act_v", 0.005),
             k_rp=rw.get("k_rp", 0.1), k_rq=rw.get("k_rq", 0.1))
+
+    def train_config(self):
+        """The AR trainer's config (``rl/agent_ar.ARTrainConfig``), the
+        fields the JAX ``train_config`` sets."""
+        from kinpoly_tpu_torch.rl.agent_ar import ARTrainConfig
+
+        ps = self.policy_specs
+        return ARTrainConfig(
+            lr=self.lr, batch_size=self.batch_size, fr_num=self.fr_num,
+            policy_lr=ps.get("policy_lr", 1e-5),
+            value_lr=ps.get("value_lr", 3e-4),
+            clip_epsilon=ps.get("clip_epsilon", 0.2),
+            gamma=ps.get("gamma", 0.95), tau=ps.get("tau", 0.95),
+            num_optim_epoch=ps.get("num_optim_epoch", 10),
+            num_step_update=ps.get("num_step_update", 20),
+            num_init_update=ps.get("num_init_update", 3),
+            log_std=ps.get("log_std", -3.2),
+            n_envs=self.n_envs, rollout_steps=self.rollout_steps,
+            sampling_temp=ps.get("sampling_temp", 0.3),
+            sampling_freq=ps.get("sampling_freq", 0.5),
+            seed=self.seed,
+            save_model_interval=ps.get("save_model_interval", 50),
+            rl_update=ps.get("rl_update", True),
+            step_update=ps.get("step_update", True),
+            step_update_dyna=ps.get("step_update_dyna", False),
+            init_update=ps.get("init_update", False),
+            full_update=ps.get("full_update", False),
+            joint_controller=ps.get("joint_controller", False),
+            cc_lr=ps.get("cc_lr", 1e-5))

@@ -1,15 +1,18 @@
 """The kinematic-policy environment (port of
-``kinpoly_tpu/envs/humanoid_ar.py``, evaluation mode "test"), over a batch
-of envs.
+``kinpoly_tpu/envs/humanoid_ar.py``), over a batch of envs.
 
 The action is the next frame's kinematic pose proposal (80-d, policy_v 1).
 The env integrates it (``traj_ar.step_ar``), bounds it, turns it into the
-UHC tracking target by FK, runs the frozen UHC controller in the loop with
-its mean action, steps the physics with the scene objects (movable: in the
-sim state; static: posed from the context), and rewards with
-``dynamic_supervision_v1``. A non-finite step snaps to the target and
-terminates; so does a summed body distance to the target beyond
-``body_diff_thresh``.
+UHC tracking target by FK, runs the UHC controller in the loop (its mean
+action in mode "test", a sample of its Gaussian in mode "train"), steps
+the physics with the scene objects (movable: in the sim state; static:
+posed from the context), and rewards with ``dynamic_supervision_v1`` or
+the kin-poly reward of ``reward_id`` (``rl/rewards.get_kin_poly_reward``).
+A non-finite step snaps to the target and terminates; so does a summed
+body distance to the target beyond ``body_diff_thresh``, and in mode
+"train" (unless ``wild``) one to the ground truth beyond
+``body_diff_gt_thresh``. The residual policy of policy_v 2 (a 76-d qpos
+action, the AR pose in the observation) is not ported.
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from kinpoly_tpu_torch.config.defaults import body_diff_weights
+from kinpoly_tpu_torch.config.defaults import (b_diff_weights_pose,
+                                               body_diff_weights)
 from kinpoly_tpu_torch.core import tmath
 from kinpoly_tpu_torch.envs.humanoid_im import EnvConfig, TargetFrame, full_obs
 from kinpoly_tpu_torch.metrics.pose_metrics import action_object_indices
@@ -28,6 +32,7 @@ from kinpoly_tpu_torch.models.traj_ar import (TrajARConfig, ar_obs, clamp_qpos,
                                               step_ar)
 from kinpoly_tpu_torch.physics import engine as eng
 from kinpoly_tpu_torch.physics import fk as fklib
+from kinpoly_tpu_torch.rl import rewards as rwlib
 from kinpoly_tpu_torch.rl import running_norm as rn
 
 
@@ -104,33 +109,34 @@ def multi_quat_norm_v2(nq: torch.Tensor) -> torch.Tensor:
 
 
 class HumanoidAREnv:
-    """The AR env bound to a physics model, the configs, the frozen UHC
-    policy (a module giving (mean, log_std)) and its observation norm, and
-    a context bank; every method acts on a batch of envs."""
+    """The AR env bound to a physics model, the configs, the UHC policy (a
+    module giving (mean, log_std)) and its observation norm, and a context
+    bank; every method acts on a batch of envs. In mode "train" the
+    controller's actions are drawn from the generator given to ``step``
+    (torch's default one if None)."""
 
     def __init__(self, model: eng.PhysicsModel, kin_cfg: TrajARConfig,
                  cc_cfg: EnvConfig, reward_w: ARRewardWeights,
                  context: ARContext | None, cc_policy, cc_norm: rn.RunningNorm,
-                 mode: str = "test", body_diff_thresh: float = 10.0,
+                 mode: str = "test", wild: bool = False,
+                 body_diff_thresh: float = 10.0,
+                 body_diff_gt_thresh: float = 12.0,
                  env_episode_len: int = 100000, policy_v: int = 1):
-        if mode != "test":
-            raise ValueError(f"mode {mode!r}: only the evaluation mode "
-                             f"'test' is ported (sampled controller actions "
-                             f"and the ground-truth termination of 'train' "
-                             f"come with AR training)")
+        if mode not in ("train", "test"):
+            raise ValueError(f"mode {mode!r}: 'train' or 'test'")
         if policy_v != 1:
-            raise ValueError(f"policy_v {policy_v} is not ported")
-        if reward_w.reward_id != "dynamic_supervision_v1":
-            raise ValueError(
-                f"reward_id {reward_w.reward_id!r} is not ported yet: the "
-                f"kin-poly rewards dynamic_supervision_v2-v6 "
-                f"(rl/rewards.py get_kin_poly_reward) come with AR training")
+            raise ValueError(f"policy_v {policy_v} is not ported: its "
+                             f"residual head (ActionDeltaNet) and the AR "
+                             f"pose in the observation come with use_of")
+        self.reward_fn = (None if reward_w.reward_id == "dynamic_supervision_v1"
+                          else rwlib.get_kin_poly_reward(reward_w.reward_id))
         self.model, self.kin_cfg, self.cc_cfg, self.rw = (model, kin_cfg,
                                                           cc_cfg, reward_w)
         self.ctx = context
         self.cc_policy, self.cc_norm = cc_policy, cc_norm
-        self.mode = mode
+        self.mode, self.wild = mode, wild
         self.body_diff_thresh = body_diff_thresh
+        self.body_diff_gt_thresh = body_diff_gt_thresh
         self.env_episode_len = env_episode_len
         self.policy_v = policy_v
         spec, dtype, device = model.spec, model.dtype, model.device
@@ -140,6 +146,7 @@ class HumanoidAREnv:
             dtype=dtype, device=device)
         self.head_idx = spec.body_index("Head")
         self.jpos_diffw = t(body_diff_weights(spec))
+        self.b_diffw = t(b_diff_weights_pose(spec))
         self.obj_of_action = torch.as_tensor(
             action_object_indices(spec) if spec.objects
             else np.zeros(4, np.int64), device=device)
@@ -219,8 +226,11 @@ class HumanoidAREnv:
 
     # -- step ------------------------------------------------------------------
 
-    def step(self, state: AREnvState, a: torch.Tensor, ctx=None):
-        """One control step of every env: (state, obs, reward, done, info)."""
+    def step(self, state: AREnvState, a: torch.Tensor, ctx=None,
+             cc_policy=None, generator: torch.Generator | None = None):
+        """One control step of every env: (state, obs, reward, done, info).
+        `cc_policy` replaces the env's controller (the jointly tuned copy
+        of training)."""
         model = self.model
         prev_sim = state.sim
         next_qpos = clamp_qpos(model.jnt_lo, model.jnt_hi, prev_sim.qpos,
@@ -228,7 +238,14 @@ class HumanoidAREnv:
         target, _ = self.target_frame(next_qpos)
         tgt_bquat = fklib.body_quat_sim(next_qpos)
         cc_obs = self.cc_obs(prev_sim, target, fk_res=state.sim_fk)
-        cc_action = self.cc_policy(cc_obs)[0]     # mode "test": the mean
+        cc_mean, cc_log_std = (self.cc_policy if cc_policy is None
+                               else cc_policy)(cc_obs)
+        if self.mode == "test":
+            cc_action = cc_mean
+        else:
+            cc_action = cc_mean + torch.exp(cc_log_std) * torch.randn(
+                cc_mean.shape, generator=generator, dtype=cc_mean.dtype,
+                device=cc_mean.device)
 
         obj_qpos = None
         if model.scene is not None and not model.movable_objects:
@@ -255,6 +272,12 @@ class HumanoidAREnv:
             * self.jpos_diffw[:, None]
         fail = (torch.linalg.norm(diff, dim=-1).sum(dim=-1)
                 > self.body_diff_thresh) | bad
+        if self.mode == "train" and not self.wild:
+            gt_wb = self._at(ctx, state, "gt_wbpos", new_t).reshape(
+                cur_wbpos.shape)
+            gt_diff = torch.linalg.norm((cur_wbpos - gt_wb)
+                                        * self.jpos_diffw[:, None], dim=-1)
+            fail = fail | (gt_diff.sum(dim=-1) > self.body_diff_gt_thresh)
         length = self._ctx(ctx).length[state.clip_idx]
         end = (new_t >= self.env_episode_len) | (new_t >= length)
         done = fail | end
@@ -268,12 +291,15 @@ class HumanoidAREnv:
             fail=fail, end=end, percent=percent, cc_action=cc_action,
             cc_state=cc_obs, reward_info=rinfo)
 
-    # -- reward dynamic_supervision_v1 -----------------------------------------
+    # -- rewards -----------------------------------------------------------
 
     def _reward(self, state, fk_cur, cur_bquat, tgt_bquat,
                 target: TargetFrame, ctx, new_t):
         rw = self.rw
         dt = self.model.control_dt
+        if self.reward_fn is not None:
+            return self._kin_poly_reward(state, fk_cur, cur_bquat, tgt_bquat,
+                                         target, ctx, new_t)
         tgt_hpose = self._at(ctx, state, "head_pose", new_t)
         cur_hpose = self._head_pose(fk_cur)
         hp_dist = torch.linalg.norm(cur_hpose[..., :3] - tgt_hpose[..., :3], dim=-1)
@@ -309,6 +335,33 @@ class HumanoidAREnv:
         info = torch.stack([hp_reward, hq_reward, p_reward, jp_reward,
                             gt_p_reward, act_v_reward], dim=-1)
         return reward, info
+
+    def _kin_poly_reward(self, state, fk_cur, cur_bquat, tgt_bquat,
+                         target: TargetFrame, ctx, new_t):
+        """The reward of ``reward_id`` from the registry, on the sim, the
+        AR target, the ground truth and the AR rollout at frame new_t."""
+        dt = self.model.control_dt
+        prev_t = torch.clamp(new_t - 1, min=0)
+        ar_qpos = self._at(ctx, state, "ar_qpos", new_t)
+        gt_bq = self._at(ctx, state, "bquat", new_t)
+        gt_pbq = self._at(ctx, state, "bquat", prev_t)
+        inp = rwlib.ARRewardInputs(
+            head_pose=self._head_pose(fk_cur),
+            tgt_head_pose=self._at(ctx, state, "head_pose", new_t),
+            bquat=cur_bquat,
+            wbpos=fk_cur.xpos.reshape(cur_bquat.shape[:-1] + (-1,)),
+            tgt_bquat=tgt_bquat, tgt_wbpos=target.wbpos,
+            gt_bquat=gt_bq, gt_prev_bquat=gt_pbq,
+            gt_wbpos=self._at(ctx, state, "gt_wbpos", new_t),
+            gt_bangvel=tmath.angvel_fd(gt_pbq, gt_bq, dt),
+            bangvel=tmath.angvel_fd(state.prev_bquat, cur_bquat, dt),
+            b_diffw=self.b_diffw, tgt_qpos=target.qpos, ar_qpos=ar_qpos,
+            ar_bquat=fklib.body_quat_sim(ar_qpos),
+            ar_prev_bquat=fklib.body_quat_sim(
+                self._at(ctx, state, "ar_qpos", prev_t)),
+            prev_bquat=state.prev_bquat)
+        ws = {f: getattr(self.rw, f) for f in self.rw.__dataclass_fields__}
+        return self.reward_fn(inp, ws, dt)
 
     # -- reset / fail-safe -----------------------------------------------------
 

@@ -1,6 +1,8 @@
 """PolicyAR: TrajARNet as the recurrent kinematic policy (port of
-``kinpoly_tpu/models/policy_ar.py``, policy_v 1, acting and the context
-build; the supervised step update is not here).
+``kinpoly_tpu/models/policy_ar.py``, policy_v 1): acting, the context
+build, the re-run of the step GRU over a recorded (T, N) rollout and the
+supervised step update's loss. The residual head of policy_v 2
+(``ActionDeltaNet``) is not ported.
 
 ``init_context`` is the evaluation's preprocessing: the whole-window AR
 rollout, Gaussian smoothing (sigma 1) of the body pose over time and the
@@ -13,7 +15,9 @@ import numpy as np
 import torch
 
 from kinpoly_tpu_torch.anim.spec import HumanoidSpec, SpecTensors
-from kinpoly_tpu_torch.models.traj_ar import ClipData, TrajARConfig, TrajARNet
+from kinpoly_tpu_torch.models.traj_ar import (ClipData, TrajARConfig,
+                                              TrajARNet, compute_loss_lite,
+                                              step_ar)
 from kinpoly_tpu_torch.physics import fk as fklib
 
 
@@ -52,6 +56,41 @@ class PolicyAR:
     def action_mean(self, gru_carry: torch.Tensor, obs: torch.Tensor):
         """One recurrent policy step: (new carry, action mean)."""
         return self.net.action(gru_carry, obs)
+
+    def action_means_over_time(self, obs_tn: torch.Tensor,
+                               prev_masks_tn: torch.Tensor) -> torch.Tensor:
+        """Re-run the step GRU over a (T, N, obs) rollout, its carry zeroed
+        where the previous step ended an episode (prev_mask 0): the action
+        means (T, N, A). The GRU steps one at a time; the MLP head runs
+        once over all (T, N)."""
+        net = self.net
+        if self.cfg.model_v not in (0, 1):      # no step GRU
+            return net.action_fc(net.action_mlp(obs_tn))
+        carry = self.init_carry(obs_tn.shape[1], obs_tn)
+        carries = []
+        for t in range(obs_tn.shape[0]):
+            carry = net.action_gru(obs_tn[t], carry * prev_masks_tn[t][:, None])
+            carries.append(carry)
+        x = torch.cat([obs_tn, torch.stack(carries)], dim=-1)
+        return net.action_fc(net.action_mlp(x))
+
+    def step_update_loss(self, obs_tn, prev_masks_tn, curr_qpos, gt_qpos,
+                         masks_valid=None, means=None):
+        """Per-step BC: the re-run's means (given, or computed here)
+        integrated kinematically from the recorded sim qpos, supervised
+        toward `gt_qpos` by ``compute_loss_lite``; the mean over steps
+        (over the valid ones with `masks_valid`). Returns (loss, info)."""
+        if means is None:
+            means = self.action_means_over_time(obs_tn, prev_masks_tn)
+        next_qpos = step_ar(curr_qpos, means, self.cfg)
+        loss, info = compute_loss_lite(self.st, self.cfg, next_qpos, gt_qpos,
+                                       reduce_mean=False)
+        if masks_valid is not None:
+            loss = (loss * masks_valid).sum() / torch.clamp(
+                masks_valid.sum(), min=1.0)
+        else:
+            loss = loss.mean()
+        return loss, info
 
     @torch.no_grad()
     def init_context(self, data: ClipData, smooth: bool = True,

@@ -1,7 +1,8 @@
 """TrajARNet, the autoregressive kinematic policy network (port of
-``kinpoly_tpu/models/traj_ar.py``, inference: the kinematic integrator, the
-observation builder and the open-loop rollout; the supervised losses are
-not here).
+``kinpoly_tpu/models/traj_ar.py``): the kinematic integrator, the
+observation builder, the AR rollout over a window (open loop, or in
+training with scheduled sampling and observation noise) and the
+supervised losses.
 
 Feature layout (kin_poly.yml: use_head, use_action, has_z; no use_vel,
 use_context or use_of):
@@ -17,7 +18,8 @@ The GRUs follow flax's ``GRUCell``: r, z = sigmoid(W_i x + b_i + W_h h)
 with no hidden bias on r and z, n = tanh(W_in x + b_in + r (W_hn h +
 b_hn)), h' = (1 - z) n + z h. Torch's GRU computes the same with its r and
 z hidden biases at zero, which is how ``models/weights.trajar_from_jax``
-loads them.
+loads them; a gradient hook keeps their gradient at zero, so that no
+optimiser moves them.
 """
 
 from __future__ import annotations
@@ -143,9 +145,13 @@ class ClipData(NamedTuple):
 def ar_obs(spec: HumanoidSpec, st: SpecTensors, cfg: TrajARConfig, qpos,
            qvel, head_pose_t, head_vels_t, obj_pose_t, obj_rel_head_t,
            action_one_hot_t, of_t=None, context_feat_t=None,
-           as_policy: bool = False, fk_res=None):
+           as_policy: bool = False, fk_res=None,
+           noise: torch.Generator | None = None):
     """The AR state of the sim qpos against the frame-t context, and its FK
-    features. `fk_res`: FK of qpos if the caller has it."""
+    features. `fk_res`: FK of qpos if the caller has it. With `noise` (a
+    generator on the inputs' device) the target head rotation, position,
+    angular and linear velocity and object-to-head pose get N(0,
+    noise_std²) noise, in that order."""
     if fk_res is None:
         fk_res = fklib.fk(st, qpos)
     head_idx = spec.body_index("Head")
@@ -159,6 +165,13 @@ def ar_obs(spec: HumanoidSpec, st: SpecTensors, cfg: TrajARConfig, qpos,
         obs.append(context_feat_t)
     t_hpos, t_hrot = head_pose_t[..., :3], head_pose_t[..., 3:]
     t_hlvel, t_havel = head_vels_t[..., :3], head_vels_t[..., 3:]
+    if noise is not None:
+        def noisy(x):
+            return x + cfg.noise_std * torch.randn(
+                x.shape, generator=noise, dtype=x.dtype, device=x.device)
+        t_hrot, t_hpos, t_havel, t_hlvel, obj_rel_head_t = (
+            noisy(x) for x in (t_hrot, t_hpos, t_havel, t_hlvel,
+                               obj_rel_head_t))
     diff_hpos = tmath.transform_vec(t_hpos - pred_hpos, pred_hrot, "heading")
     diff_hrot = tmath.quat_mul(tmath.quat_inv(t_hrot), pred_hrot)
     q_heading = tmath.heading_q(pred_hrot)
@@ -201,6 +214,14 @@ def obs_dim(cfg: TrajARConfig, as_policy: bool = False) -> int:
     return d
 
 
+def _zero_rz_grad(g: torch.Tensor) -> torch.Tensor:
+    """A GRU hidden bias's gradient with its r and z thirds zeroed: flax's
+    GRUCell has no such bias, so the torch GRU keeps them at 0."""
+    g = g.clone()
+    g[: 2 * (g.shape[0] // 3)] = 0.0
+    return g
+
+
 class TrajARNet(nn.Module):
     """Context GRU -> MLP -> initial state; step GRU + MLP -> per-step
     action. Layer names follow the flax module; `st` are the spec's
@@ -220,6 +241,9 @@ class TrajARNet(nn.Module):
             d += H
         self.action_mlp = MLP(d, cfg.mlp_hsize, cfg.mlp_htype)
         self.action_fc = _linear(cfg.mlp_hsize[-1], cfg.action_dim)
+        for name, p in self.named_parameters():
+            if name.rsplit(".", 1)[-1].startswith("bias_hh"):
+                p.register_hook(_zero_rz_grad)
 
     def context_input(self, data: ClipData) -> torch.Tensor:
         c = self.cfg
@@ -263,26 +287,47 @@ class TrajARNet(nn.Module):
     def init_action_carry(self, batch: int, like: torch.Tensor) -> torch.Tensor:
         return like.new_zeros((batch, self.cfg.rnn_hdim))
 
-    def obs_at(self, qpos, qvel, data: ClipData, t: int, ctx):
+    def obs_at(self, qpos, qvel, data: ClipData, t: int, ctx, noise=None):
         use_ctx = self.cfg.use_context or self.cfg.use_of
         return ar_obs(
             self.spec, self.st, self.cfg, qpos, qvel, data.head_pose[:, t],
             data.head_vels[:, t], data.obj_pose[:, t],
             data.obj_head_relative_poses[:, t], data.action_one_hot[:, t],
             None if data.of is None else data.of[:, t],
-            ctx[:, t] if use_ctx else None, as_policy=self.as_policy)
+            ctx[:, t] if use_ctx else None, as_policy=self.as_policy,
+            noise=noise)
 
-    def forward(self, data: ClipData) -> dict:
-        """The open-loop AR rollout over the whole window from the predicted
-        initial state (no scheduled sampling, no noise): per-frame features
-        (B, T, ...) and actions, qvel shifted one frame forward."""
+    def forward(self, data: ClipData, gt_rate: float = 0.0,
+                generator: torch.Generator | None = None,
+                train: bool = False) -> dict:
+        """The AR rollout over the whole window from the predicted initial
+        state: per-frame features (B, T, ...) and actions, qvel shifted one
+        frame forward. Scheduled sampling: with probability `gt_rate` the
+        initial state, and at each later step the next state, is the
+        data's, one Bernoulli draw for the whole batch each. With
+        `train` and the config's ``add_noise`` the observations get noise
+        (``ar_obs``). Draws come from `generator` (on the data's device;
+        one seeded 0 if None)."""
         B, T = data.qpos.shape[:2]
-        lo = torch.as_tensor(self.spec.jnt_range[:, 0], dtype=data.qpos.dtype,
-                             device=data.qpos.device)
-        hi = torch.as_tensor(self.spec.jnt_range[:, 1], dtype=data.qpos.dtype,
-                             device=data.qpos.device)
+        dev, dtype = data.qpos.device, data.qpos.dtype
+        lo = torch.as_tensor(self.spec.jnt_range[:, 0], dtype=dtype, device=dev)
+        hi = torch.as_tensor(self.spec.jnt_range[:, 1], dtype=dtype, device=dev)
+        sampled = gt_rate > 0
+        noisy = self.cfg.add_noise and train
+        if generator is None and (sampled or noisy):
+            generator = torch.Generator(device=dev).manual_seed(0)
+        noise = generator if noisy else None
+
+        def use_gt():
+            return torch.rand((), generator=generator, dtype=dtype,
+                              device=dev) < gt_rate
+
         qpos, qvel, ctx = self.init_states(data)
-        state, feat = self.obs_at(qpos, qvel, data, 0, ctx)
+        if sampled:
+            u = use_gt()
+            qpos = torch.where(u, data.qpos[:, 0], qpos)
+            qvel = torch.where(u, data.qvel[:, 0], qvel)
+        state, feat = self.obs_at(qpos, qvel, data, 0, ctx, noise)
         gru = self.init_action_carry(B, qpos)
         feats = {k: [v] for k, v in feat.items()}
         acts = []
@@ -291,7 +336,11 @@ class TrajARNet(nn.Module):
             next_qpos = clamp_qpos(lo, hi, qpos, step_ar(qpos, act, self.cfg))
             qvel = tmath.qvel_fd(qpos, next_qpos, DT)
             qpos = next_qpos
-            state, feat = self.obs_at(qpos, qvel, data, t, ctx)
+            if sampled:
+                u = use_gt()
+                qpos = torch.where(u, data.qpos[:, t], qpos)
+                qvel = torch.where(u, data.qvel[:, t], qvel)
+            state, feat = self.obs_at(qpos, qvel, data, t, ctx, noise)
             acts.append(act)
             for k, v in feat.items():
                 feats[k].append(v)
@@ -301,3 +350,67 @@ class TrajARNet(nn.Module):
         q = out["qvel"]
         out["qvel"] = torch.cat([q[:, 1:], q[:, -2:-1]], dim=1)
         return out
+
+
+# ---------------------------------------------------------------------------
+# losses (reference compute_loss*, traj_ar_smpl_net.py:390-527)
+# ---------------------------------------------------------------------------
+
+
+def _quat_iden_loss(q_pred: torch.Tensor, q_gt: torch.Tensor) -> torch.Tensor:
+    d = tmath.quat_mul(q_gt, tmath.quat_inv(q_pred))
+    iden = torch.zeros_like(d)
+    iden[..., 0] = 1.0
+    return torch.sum((torch.abs(d) - iden) ** 2, dim=-1)
+
+
+def _sq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.sum((a - b) ** 2, dim=-1)
+
+
+def compute_loss(cfg: TrajARConfig, feats: dict, data: ClipData):
+    """The full-rollout supervised loss: root position and rotation, body
+    pose, root linear and angular velocity, body positions, object-to-head
+    position and rotation, weighted by the config."""
+    pred_qpos, gt_qpos = feats["qpos"], data.qpos
+    r_pos = _sq(gt_qpos[..., :3], pred_qpos[..., :3]).mean()
+    r_rot = _quat_iden_loss(pred_qpos[..., 3:7], gt_qpos[..., 3:7]).mean()
+    p_rot = _sq(gt_qpos[..., 7:], pred_qpos[..., 7:]).mean()
+    pred_qvel, gt_qvel = feats["qvel"][:, :-1], data.qvel[:, 1:]
+    vl = _sq(gt_qvel[..., :3], pred_qvel[..., :3]).mean()
+    va = _sq(gt_qvel[..., 3:6], pred_qvel[..., 3:6]).mean()
+    ee = _sq(data.wbpos, feats["pred_wbpos"]).mean()
+    o2h, gt_o2h = feats["obj_2_head"], data.obj_head_relative_poses
+    o_pos = _sq(gt_o2h[..., :3], o2h[..., :3]).mean()
+    o_rot = _quat_iden_loss(o2h[..., 3:], gt_o2h[..., 3:]).mean()
+    loss = (cfg.w_rp * r_pos + cfg.w_rr * r_rot + cfg.w_p * p_rot
+            + cfg.w_v * vl + cfg.w_v * va + cfg.w_ee * ee
+            + cfg.w_op * o_pos + cfg.w_or * o_rot)
+    return loss, dict(r_pos=r_pos, r_rot=r_rot, p_rot=p_rot, vl=vl, va=va,
+                      ee=ee, o_pos=o_pos, o_rot=o_rot)
+
+
+def compute_loss_lite(st: SpecTensors, cfg: TrajARConfig, pred_qpos, gt_qpos,
+                      reduce_mean: bool = True):
+    """Per-frame qpos supervision: root position and rotation, body pose
+    and body positions (FK with `st`)."""
+    lead = pred_qpos.shape[:-1]
+    pred_w = fklib.fk(st, pred_qpos).xpos.reshape(lead + (-1,))
+    gt_w = fklib.fk(st, gt_qpos).xpos.reshape(gt_qpos.shape[:-1] + (-1,))
+    r_pos = _sq(gt_qpos[..., :3], pred_qpos[..., :3])
+    r_rot = _quat_iden_loss(pred_qpos[..., 3:7], gt_qpos[..., 3:7])
+    p_rot = _sq(gt_qpos[..., 7:], pred_qpos[..., 7:])
+    ee = _sq(gt_w, pred_w)
+    loss = cfg.w_rp * r_pos + cfg.w_rr * r_rot + cfg.w_p * p_rot + cfg.w_ee * ee
+    if reduce_mean:
+        loss = loss.mean()
+    return loss, dict(r_pos=r_pos.mean(), r_rot=r_rot.mean(),
+                      p_rot=p_rot.mean(), ee=ee.mean())
+
+
+def compute_loss_init(st: SpecTensors, cfg: TrajARConfig, pred_qpos, gt_qpos,
+                      pred_qvel, gt_qvel):
+    """The initial-state loss: ``compute_loss_lite`` on the qpos. The
+    velocities are taken and not used, as in the reference."""
+    del pred_qvel, gt_qvel
+    return compute_loss_lite(st, cfg, pred_qpos, gt_qpos)

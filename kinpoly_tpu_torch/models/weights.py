@@ -1,6 +1,6 @@
 """Read and write UHC checkpoints (``results/motion_im/uhc/models/iter_*.p``)
-in the JAX package's layout, and read the kinematic policy's
-(``results*/statear/kin_poly/models/iter_*.p``).
+and the kinematic policy's (``results*/statear/kin_poly/models/iter_*.p``)
+in the JAX package's layout.
 
 The checkpoints are plain pickles of numpy arrays: flax parameter trees for
 the policy and the value net, and a ``kinpoly_tpu.rl.running_norm.RunningNorm``.
@@ -15,7 +15,8 @@ and back; the primitive bank's stacked (P, in, out) weights and a learnable
 flax trees (nested dicts of numpy arrays) that the port's trainer saves.
 A flax ``GRUCell`` (``ir/iz/in`` with biases, ``hr/hz`` without, ``hn``
 with) becomes a torch GRU's stacked (r, z, n) weights with zero hidden
-biases on r and z (``trajar_from_jax``).
+biases on r and z (``trajar_from_jax``), and back (``trajar_to_jax``,
+which refuses a non-zero r or z hidden bias: flax has no place for it).
 """
 
 from __future__ import annotations
@@ -159,6 +160,36 @@ def trajar_from_jax(params: dict) -> dict:
     sd.update(_mlp("action_mlp", p["action_mlp"]))
     sd.update(_dense("action_fc", p["action_fc"]))
     return sd
+
+
+def _flax_gru(sd: dict, prefix: str, suffix: str = "") -> dict:
+    w_ih = _np(sd[f"{prefix}.weight_ih{suffix}"])
+    w_hh = _np(sd[f"{prefix}.weight_hh{suffix}"])
+    b_ih = _np(sd[f"{prefix}.bias_ih{suffix}"])
+    b_hh = _np(sd[f"{prefix}.bias_hh{suffix}"])
+    H = w_hh.shape[1]
+    if np.any(b_hh[:2 * H] != 0):
+        raise ValueError(f"{prefix}: non-zero r/z hidden bias, which a flax "
+                         f"GRUCell does not have")
+    part = lambda x, i: x[i * H:(i + 1) * H]
+    out = {g: {"kernel": part(w_ih, i).T.copy(), "bias": part(b_ih, i).copy()}
+           for i, g in enumerate(("ir", "iz", "in"))}
+    out.update({g: {"kernel": part(w_hh, i).T.copy()}
+                for i, g in enumerate(("hr", "hz"))})
+    out["hn"] = {"kernel": part(w_hh, 2).T.copy(), "bias": part(b_hh, 2).copy()}
+    return out
+
+
+def trajar_to_jax(sd: dict) -> dict:
+    """``traj_ar.TrajARNet`` state dict -> flax TrajARNet params."""
+    p = {"context_gru": _flax_gru(sd, "context_gru", "_l0"),
+         "context_mlp": _flax_mlp(sd, "context_mlp"),
+         "context_fc": _flax_dense(sd, "context_fc")}
+    if "action_gru.weight_ih" in sd:
+        p["action_gru"] = _flax_gru(sd, "action_gru")
+    p["action_mlp"] = _flax_mlp(sd, "action_mlp")
+    p["action_fc"] = _flax_dense(sd, "action_fc")
+    return {"params": p}
 
 
 def load_ar_checkpoint(path: str) -> dict:

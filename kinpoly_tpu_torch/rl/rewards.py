@@ -2,7 +2,10 @@
 (``world_rfc_implicit`` and its ``_v1_mul``/``_v2``/``_v3`` variants,
 ``local_rfc_implicit``), the legacy imitation rewards that run on the same
 inputs (``quat_v2``, ``deep_mimic``, ``local_world_*``, ``world_quat*``, ...)
-and the ``get_uhc_reward`` lookup.
+and the ``get_uhc_reward`` lookup; and the kin-poly rewards of the AR env
+(``dynamic_supervision_v2``-``_v6``, ``constant``) on ``ARRewardInputs``
+with the ``get_kin_poly_reward`` lookup. The controller fine-tuning ids
+(``fine_tune_*``) are not ported: no trainer builds their inputs.
 
 Every reward is a function of a ``RewardInputs`` bundle and the weight dict
 ``ws`` (the env config's fields), batched over leading dims, and returns
@@ -432,3 +435,160 @@ def get_uhc_reward(reward_id: str) -> Callable:
         raise KeyError(f"unknown UHC reward_id {reward_id!r}; available: "
                        f"{sorted(UHC_REWARDS) + sorted(LEGACY_IMITATION_REWARDS)}")
     return UHC_REWARDS[reward_id]
+
+
+# ---------------------------------------------------------------------------
+# kin-poly rewards (the dynamic supervision family of the AR env;
+# dynamic_supervision_v1 lives in envs/humanoid_ar.py)
+# ---------------------------------------------------------------------------
+
+
+class ARRewardInputs(NamedTuple):
+    """What the kin-poly rewards consume, batched (..., d)."""
+    head_pose: torch.Tensor
+    tgt_head_pose: torch.Tensor
+    bquat: torch.Tensor
+    wbpos: torch.Tensor
+    tgt_bquat: torch.Tensor      # the AR target (this step's integrated action)
+    tgt_wbpos: torch.Tensor
+    gt_bquat: torch.Tensor       # ground truth
+    gt_prev_bquat: torch.Tensor
+    gt_wbpos: torch.Tensor = None
+    gt_bangvel: torch.Tensor = None
+    bangvel: torch.Tensor = None
+    b_diffw: torch.Tensor = None
+    tgt_qpos: torch.Tensor = None       # the integrated action
+    ar_qpos: torch.Tensor = None        # the AR rollout at this frame
+    ar_bquat: torch.Tensor = None
+    ar_prev_bquat: torch.Tensor = None  # the AR rollout at the frame before
+    prev_bquat: torch.Tensor = None     # simulated, the step before
+
+
+def dynamic_supervision_v2(inp: ARRewardInputs, ws: dict, dt: float):
+    """Imitation and head tracking, no dynamics regulation."""
+    w_hp, w_hq = ws.get("w_hp", 1.0), ws.get("w_hq", 1.0)
+    w_p, w_v, w_e = ws.get("w_p", 0.6), ws.get("w_v", 0.1), ws.get("w_e", 0.2)
+    k_hp, k_hq = ws.get("k_hp", 1.0), ws.get("k_hq", 1.0)
+    k_p, k_v, k_e = ws.get("k_p", 2.0), ws.get("k_v", 0.005), ws.get("k_e", 20.0)
+    hp_r = _exp(k_hp, _norm(inp.head_pose[..., :3] - inp.tgt_head_pose[..., :3]))
+    hq_d = multi_quat_norm_v2(tmath.quat_mul(
+        inp.head_pose[..., 3:], tmath.quat_inv(inp.tgt_head_pose[..., 3:]))
+    ).mean(-1)
+    hq_r = _exp(k_hq, hq_d)
+    pd = tmath.multi_quat_norm(tmath.multi_quat_diff(inp.bquat, inp.gt_bquat))
+    pd = torch.cat([pd[..., :1], pd[..., 1:] * inp.b_diffw], dim=-1)
+    pose_r = _exp(k_p, torch.linalg.norm(pd, dim=-1))
+    vel_r = _exp(k_v, _norm(inp.bangvel - inp.gt_bangvel))
+    ee_r = _exp(k_e, _norm(inp.wbpos - inp.gt_wbpos))
+    reward = w_hp * hp_r + w_hq * hq_r + w_p * pose_r + w_v * vel_r + w_e * ee_r
+    return reward, torch.stack([hp_r, hq_r, pose_r, vel_r, ee_r], dim=-1)
+
+
+def _head_target_terms(inp: ARRewardInputs, ws: dict):
+    """Head position and rotation, and body rotation and position against
+    the AR target: shared by v3-v6."""
+    k_hp, k_hq = ws.get("k_hp", 1.0), ws.get("k_hq", 1.0)
+    k_p, k_jp = ws.get("k_p", 1.0), ws.get("k_jp", 0.1)
+    hp_r = _exp(k_hp, _norm(inp.head_pose[..., :3] - inp.tgt_head_pose[..., :3]))
+    hq_d = multi_quat_norm_v2(tmath.multi_quat_diff(
+        inp.head_pose[..., 3:], inp.tgt_head_pose[..., 3:])).mean(-1)
+    hq_r = _exp(k_hq, hq_d)
+    pq_d = multi_quat_norm_v2(
+        tmath.multi_quat_diff(inp.bquat, inp.tgt_bquat)).mean(-1)
+    p_r = _exp(k_p, pq_d)
+    shape = inp.wbpos.shape[:-1] + (24, 3)
+    pp_d = torch.linalg.norm(inp.wbpos.reshape(shape)
+                             - inp.tgt_wbpos.reshape(shape), dim=-1).mean(-1)
+    jp_r = _exp(k_jp, pp_d)
+    return hp_r, hq_r, p_r, jp_r
+
+
+def dynamic_supervision_v3(inp: ARRewardInputs, ws: dict, dt: float):
+    """Multiplicative head and target tracking, and the integrated action
+    pulled toward the AR rollout (root position and rotation, body
+    rotation)."""
+    k_rp, k_rq = ws.get("k_rp", 0.1), ws.get("k_rq", 0.1)
+    k_act_p = ws.get("k_act_p", 0.1)
+    hp_r, hq_r, p_r, jp_r = _head_target_terms(inp, ws)
+    rp_d = _norm(inp.ar_qpos[..., :3] - inp.tgt_qpos[..., :3])
+    rq_d = multi_quat_norm_v2(tmath.multi_quat_diff(
+        inp.ar_qpos[..., 3:7], inp.tgt_qpos[..., 3:7])).mean(-1)
+    act_p_d = multi_quat_norm_v2(
+        tmath.multi_quat_diff(inp.ar_bquat, inp.tgt_bquat)).mean(-1)
+    rp_r = _exp(k_rp, rp_d)
+    rq_r = _exp(k_rq, rq_d)
+    act_p_r = torch.exp(-k_act_p * act_p_d)     # not squared, as the reference
+    reward = hp_r * hq_r * p_r * jp_r * rp_r * rq_r * act_p_r
+    return reward, torch.stack(
+        [hp_r, hq_r, p_r, jp_r, rp_r, rq_r, act_p_r], dim=-1)
+
+
+def dynamic_supervision_v4(inp: ARRewardInputs, ws: dict, dt: float):
+    """Additive head and target tracking, no action terms (the head
+    velocity term is 0, as the reference leaves it)."""
+    w_hp, w_hq = ws.get("w_hp", 1.0), ws.get("w_hq", 1.0)
+    w_hv, w_p, w_jp = ws.get("w_hv", 0.05), ws.get("w_p", 1.0), ws.get("w_jp", 1.0)
+    hp_r, hq_r, p_r, jp_r = _head_target_terms(inp, ws)
+    hv_r = torch.zeros_like(hp_r)
+    reward = (w_hp * hp_r + w_hq * hq_r + w_hv * hv_r
+              + w_p * p_r + w_jp * jp_r)
+    return reward, torch.stack([hp_r, hq_r, hv_r, p_r, jp_r], dim=-1)
+
+
+def dynamic_supervision_v5(inp: ARRewardInputs, ws: dict, dt: float):
+    """v4, multiplicative."""
+    hp_r, hq_r, p_r, jp_r = _head_target_terms(inp, ws)
+    return hp_r * hq_r * p_r * jp_r, torch.stack([hp_r, hq_r, p_r, jp_r], dim=-1)
+
+
+def dynamic_supervision_v6(inp: ARRewardInputs, ws: dict, dt: float):
+    """Additive head and target tracking and the body angular velocity
+    against the AR rollout's."""
+    w_hp, w_hq = ws.get("w_hp", 1.0), ws.get("w_hq", 1.0)
+    w_p, w_jp, w_act_v = ws.get("w_p", 1.0), ws.get("w_jp", 1.0), ws.get("w_act_v", 1.0)
+    k_act_v = ws.get("k_act_v", 0.1)
+    v_ord = ws.get("v_ord", 2)
+    hp_r, hq_r, p_r, jp_r = _head_target_terms(inp, ws)
+    cur_bangvel = tmath.angvel_fd(inp.prev_bquat, inp.bquat, dt)
+    tgt_bangvel = tmath.angvel_fd(inp.ar_prev_bquat, inp.ar_bquat, dt)
+    act_v_r = _exp(k_act_v, _norm(cur_bangvel - tgt_bangvel, v_ord))
+    reward = (w_hp * hp_r + w_hq * hq_r + w_p * p_r + w_jp * jp_r
+              + w_act_v * act_v_r)
+    return reward, torch.stack([hp_r, hq_r, p_r, jp_r, act_v_r], dim=-1)
+
+
+def constant_reward(inp: ARRewardInputs, ws: dict, dt: float):
+    one = torch.ones(inp.head_pose.shape[:-1], dtype=inp.head_pose.dtype,
+                     device=inp.head_pose.device)
+    return one, one[..., None]
+
+
+KIN_POLY_REWARDS: dict[str, Callable] = {
+    "dynamic_supervision_v2": dynamic_supervision_v2,
+    "dynamic_supervision_v3": dynamic_supervision_v3,
+    "dynamic_supervision_v4": dynamic_supervision_v4,
+    "dynamic_supervision_v5": dynamic_supervision_v5,
+    "dynamic_supervision_v6": dynamic_supervision_v6,
+    "constant": constant_reward,
+}
+
+# the controller fine-tuning rewards of the kin-poly registry: no trainer
+# builds their inputs
+FINE_TUNE_IDS = frozenset(("fine_tune_kin_action_reward",
+                           "fine_tune_action_reward", "fine_tune_reward"))
+
+
+def get_kin_poly_reward(reward_id: str) -> Callable:
+    """A kin-poly reward by id, as the JAX lookup: an imitation id is the
+    UHC env's, not the AR env's."""
+    if reward_id in FINE_TUNE_IDS:
+        raise KeyError(f"kin-poly reward_id {reward_id!r} is a controller "
+                       f"fine-tuning reward, which the port does not have")
+    if reward_id in LEGACY_IMITATION_REWARDS:
+        raise KeyError(
+            f"kin-poly reward_id {reward_id!r} is an imitation reward; "
+            f"set it as the UHC env's reward_id instead")
+    if reward_id not in KIN_POLY_REWARDS:
+        raise KeyError(f"unknown kin-poly reward_id {reward_id!r}; "
+                       f"available: {sorted(KIN_POLY_REWARDS)}")
+    return KIN_POLY_REWARDS[reward_id]

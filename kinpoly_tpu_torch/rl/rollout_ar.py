@@ -1,5 +1,7 @@
 """Batched rollout of the recurrent kinematic policy in the AR env (port of
-``kinpoly_tpu/rl/rollout_ar.py``, mean actions).
+``kinpoly_tpu/rl/rollout_ar.py``): the policy's mean actions (evaluation)
+or samples of its Gaussian (training; a mean-action rollout would make the
+PPO surrogate's gradient exactly zero).
 
 N envs step in lockstep for ``n_steps`` control steps in a Python loop
 under ``torch.no_grad()``. As in the UHC rollout, every env is reset at
@@ -49,22 +51,31 @@ class ARRolloutState(NamedTuple):
 
 def make_ar_rollout(env: HumanoidAREnv, policy: PolicyAR, n_steps: int,
                     fail_safe: bool = False):
-    """`rollout(carry, ctx=None)` -> (new carry, ARTrajectory), with the
-    policy's mean actions."""
+    """`rollout(carry, ctx=None, mean_action=True, cc_policy=None,
+    generator=None)` -> (new carry, ARTrajectory). With
+    ``mean_action=False`` the action is mean + exp(log_std) N(0, 1) drawn
+    from `generator`, and `log_probs` are the samples'. `cc_policy` and
+    `generator` go on to ``env.step`` (the controller and its noise in
+    mode "train")."""
 
     @torch.no_grad()
-    def rollout(carry: ARRolloutState, ctx=None):
+    def rollout(carry: ARRolloutState, ctx=None, mean_action: bool = True,
+                cc_policy=None, generator: torch.Generator | None = None):
         the_ctx = env.ctx if ctx is None else ctx
         T_ctx = the_ctx.qpos.shape[1]
         traj = None
         for t in range(n_steps):
-            gru, action = policy.action_mean(carry.gru, carry.obs)
-            log_prob = nets.gaussian_log_prob(
-                action, action, torch.full_like(action, policy.log_std))
+            gru, mean = policy.action_mean(carry.gru, carry.obs)
+            log_std = torch.full_like(mean, policy.log_std)
+            action = mean if mean_action else mean + torch.exp(log_std) * (
+                torch.randn(mean.shape, generator=generator,
+                            dtype=mean.dtype, device=mean.device))
+            log_prob = nets.gaussian_log_prob(action, mean, log_std)
             es = carry.env_state
             gt_qpos = the_ctx.qpos[es.clip_idx,
                                    torch.clamp(es.cur_t + 1, max=T_ctx - 1)]
-            env_state, obs, reward, done, info = env.step(es, action, ctx)
+            env_state, obs, reward, done, info = env.step(
+                es, action, ctx, cc_policy=cc_policy, generator=generator)
             fails = info.fail
             if fail_safe:
                 # teleport on failure and roll on: only the take's end

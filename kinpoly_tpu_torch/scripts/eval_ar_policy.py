@@ -58,14 +58,14 @@ CONFIGS = {"kin_poly": KinPolyConfig}
 
 
 def standing_take(spec, n_frames: int = 120, seed: int = 0,
-                  action: str = "sit") -> dict:
+                  action: str = "sit", walk: float = 0.003) -> dict:
     """A seeded take: the standing pose with a cumulative uniform walk of
-    the joint angles (+-0.003 rad per frame), the action's object 1 m
+    the joint angles (+-`walk` rad per frame), the action's object 1 m
     ahead."""
     q = standing_pose(spec)[0].astype(np.float32)
     rng = np.random.RandomState(seed)
     seq = np.repeat(q[None], n_frames, 0)
-    seq[:, 7:] += np.cumsum(rng.uniform(-0.003, 0.003, (n_frames, 69)),
+    seq[:, 7:] += np.cumsum(rng.uniform(-walk, walk, (n_frames, 69)),
                             0).astype(np.float32)
     obj = np.zeros((n_frames, 7), np.float32)
     obj[:, :3] = [1.0, 0.5, 0.4]
@@ -129,7 +129,7 @@ def build_eval(takes: list[dict], iter_: int, device, dtype=torch.float32,
         policy_v=ps.get("policy_v", 1))
     t_max = max(t["qpos"].shape[0] for t in takes)
     dataset = statear.StateARDataset(takes, fr_num=t_max)
-    agent = AgentAR(env, dataset, seed=cfg.seed, log_std=ps.get("log_std", -3.2))
+    agent = AgentAR(env, dataset, cfg.train_config())
     ckpt = os.path.join(cfg.model_dir(out_root), f"iter_{iter_:04d}.p")
     loaded = os.path.exists(ckpt)
     if loaded:

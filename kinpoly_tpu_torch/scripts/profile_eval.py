@@ -1,6 +1,6 @@
-"""Where the time of UHC evaluation or training, or of the AR evaluation,
-goes on the card: torch.profiler over a few control steps of an evaluation
-loop, or over one training iteration.
+"""Where the time of UHC evaluation or training, or of the AR evaluation
+or training, goes on the card: torch.profiler over a few control steps of
+an evaluation loop, or over one training iteration or epoch.
 
     python -m kinpoly_tpu_torch.scripts.profile_eval --steps 3 \\
         [--data data_bank/clips24.pkl] [--trace eval_trace.json]
@@ -8,6 +8,9 @@ loop, or over one training iteration.
         [--data data_bank/clips24.pkl] [--n-envs 1024] [--steps 8]
     python -m kinpoly_tpu_torch.scripts.profile_eval --ar --steps 5 \\
         [--data data_bank/wild_takes_r5.pkl] [--ar-iter 800 --out results_r5]
+    python -m kinpoly_tpu_torch.scripts.profile_eval --ar-train \
+        [--data data_bank/ar_train_56.pkl] [--ar-iter 800 --out results_r5] \
+        [--n-envs 64] [--steps 156]
 
 Evaluation: one env per take, ``--steps`` control steps. ``--train``: one
 ``train_epoch`` of ``--n-envs`` envs x ``--steps`` control steps (rollout,
@@ -15,7 +18,12 @@ norm, GAE, PPO update) after one warm-up iteration. ``--ar``: the AR
 evaluation of ``eval_ar_policy`` (checkpoint ``--ar-iter`` under
 ``--out``, the UHC controller ``--uhc-checkpoint``, one env per take of
 the wild bank by default), ``--steps`` control steps after a 2-step
-warm-up.
+warm-up. ``--ar-train``: composite epochs of ``train_ar_policy`` with the
+joint controller (kin_poly.yml's widths, ``--n-envs`` envs, 64 by
+default, on ``ar_train_56.pkl`` from checkpoint ``--ar-iter``, which is
+read and not written): after a warm-up epoch of 4 control steps, one of
+``--steps`` control steps (156) timed per phase (context, rollout, PPO,
+BC, controller) with its peak memory, then one of 8 under the profiler.
 
 Prints the host wall time per control step, the device's busy share
 (union of kernel intervals over the profiled wall time), device activities
@@ -35,6 +43,7 @@ from kinpoly_tpu_torch.config.defaults import UHCConfig
 from kinpoly_tpu_torch.scripts.eval_uhc import build_agent, get_takes
 from kinpoly_tpu_torch.scripts.train_uhc import build_trainer
 
+AR_PROFILE_STEPS = 8
 _SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
                "cudaMemcpy", "cudaMemcpyAsync", "cudaEventSynchronize")
 
@@ -74,6 +83,53 @@ def profiled(fn, steps: int, what: str, trace: str | None = None) -> None:
         prof.export_chrome_trace(trace)
 
 
+def profile_ar_train(args) -> None:
+    """A warm-up epoch of 4 control steps; one epoch at `--steps` (156)
+    timed per phase; one epoch of AR_PROFILE_STEPS under the profiler
+    (a whole epoch's ~5 million device activities overwhelm it)."""
+    import dataclasses
+    import os
+
+    from kinpoly_tpu_torch.anim.spec import synthetic_spec
+    from kinpoly_tpu_torch.config.defaults import KinPolyConfig
+    from kinpoly_tpu_torch.rl import rollout_ar as roa
+    from kinpoly_tpu_torch.scripts import train_ar_policy as tap
+
+    cfg = KinPolyConfig()
+    steps = args.steps or cfg.rollout_steps
+    n_envs = args.n_envs or cfg.n_envs
+    tc = dataclasses.replace(cfg.train_config(), joint_controller=True,
+                             n_envs=n_envs, rollout_steps=steps)
+    takes = tap.get_takes(synthetic_spec(with_objects=True),
+                          args.data or "data_bank/ar_train_56.pkl")
+    agent = tap.build_agent(takes, cfg, tc, "cuda",
+                            uhc_checkpoint=args.uhc_checkpoint)
+    agent.load_checkpoint(os.path.join(cfg.model_dir(args.out),
+                                       f"iter_{args.ar_iter:04d}.p"))
+    full = agent._rollout
+    agent._rollout = roa.make_ar_rollout(agent.env, agent.policy, 4)
+    agent.optimize_policy()                                     # warm-up
+    agent._rollout = full
+    torch.cuda.reset_peak_memory_stats()
+    agent.time_phases, agent.phase_s = True, {}
+    m = agent.optimize_policy()
+    ph = agent.phase_s
+    print(f"device: {torch.cuda.get_device_name(0)}")
+    print(f"one AR training epoch, {n_envs} envs x {steps} control steps: "
+          f"{m['T_iter']:.2f} s; context {ph['context']:.3f} s, rollout "
+          f"{ph['rollout']:.2f} s ({ph['rollout'] / steps * 1e3:.1f} ms per "
+          f"control step), " + ", ".join(
+              f"{k} {ph[k]:.3f} s" for k in ("ppo", "bc", "controller")
+              if k in ph) + f"; peak memory allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    agent.time_phases = False
+    agent._rollout = roa.make_ar_rollout(agent.env, agent.policy,
+                                         AR_PROFILE_STEPS)
+    profiled(agent.optimize_policy, AR_PROFILE_STEPS,
+             f"one AR training epoch, {n_envs} envs x {AR_PROFILE_STEPS} "
+             f"control steps", args.trace)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--train", action="store_true",
@@ -84,7 +140,8 @@ def main(argv=None):
                    help="expert bank (data_bank/*.pkl); default: seeded clips")
     p.add_argument("--clips", type=int, default=None)
     p.add_argument("--frames", type=int, default=None)
-    p.add_argument("--n-envs", type=int, default=1024, help="training envs")
+    p.add_argument("--n-envs", type=int, default=None,
+                   help="training envs (UHC 1024, AR kin_poly.yml's 64)")
     p.add_argument("--steps", type=int, default=None,
                    help="control steps (evaluation 3, training 8)")
     p.add_argument("--seed", type=int, default=0)
@@ -96,7 +153,13 @@ def main(argv=None):
                    help="output root of the AR checkpoint")
     p.add_argument("--uhc-checkpoint",
                    default="results/motion_im/uhc/models/iter_13000.p")
+    p.add_argument("--ar-train", action="store_true",
+                   help="time and profile AR training epochs instead")
     args = p.parse_args(argv)
+
+    if args.ar_train:
+        profile_ar_train(args)
+        return
 
     if args.ar:
         from kinpoly_tpu_torch.anim.spec import synthetic_spec
@@ -118,10 +181,11 @@ def main(argv=None):
     if args.train:
         steps = args.steps or 8
         cfg = UHCConfig()
-        agent = build_trainer(takes, cfg, args.n_envs, steps, device="cuda")
+        n_envs = args.n_envs or 1024
+        agent = build_trainer(takes, cfg, n_envs, steps, device="cuda")
         agent.train_epoch(adaptive=cfg.adaptive_params(0))      # warm-up
         profiled(lambda: agent.train_epoch(adaptive=cfg.adaptive_params(1)),
-                 steps, f"one training iteration, {args.n_envs} envs x {steps} "
+                 steps, f"one training iteration, {n_envs} envs x {steps} "
                  f"control steps", args.trace)
     else:
         steps = args.steps or 3

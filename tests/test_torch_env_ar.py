@@ -56,10 +56,16 @@ STATE_TOL = 1e-7     # physics state, as tests/test_torch_engine.py
 OBS_TOL = 1e-6       # observation, reward, controller action
 
 
-def build_envs(body_diff_thresh: float = 10.0, n_frames: int = 10):
+def build_envs(body_diff_thresh: float = 10.0, n_frames: int = 10,
+               mode: str = "test", reward_id: str = "dynamic_supervision_v1",
+               body_diff_gt_thresh: float = 12.0, cc_log_std: float = -2.3,
+               small: dict = SMALL):
     """Both packages' AR env over one wild take per action (n_frames each),
     each with the context its own agent builds from the same small AR net:
-    a namespace of the JAX and port env, policy, params and context."""
+    a namespace of the JAX and port env, policy, params and context. In
+    mode "train" the envs run the ground-truth termination at
+    `body_diff_gt_thresh` and sample the controller's actions at
+    `cc_log_std`."""
     spec = sp.synthetic_spec(0, with_objects=True)
     jspec = jax_spec(spec)
     kw = dict(movable_objects=True, compact_k=(16, 8))
@@ -83,21 +89,30 @@ def build_envs(body_diff_thresh: float = 10.0, n_frames: int = 10):
     jclip = jta.ClipData(*(None if x is None else jnp.asarray(x) for x in clip))
 
     # fresh flax parameters, carried into the port
-    jcfg, tcfg = jta.TrajARConfig(**SMALL), tta.TrajARConfig(**SMALL)
+    jcfg, tcfg = jta.TrajARConfig(**small), tta.TrajARConfig(**small)
     jp = jpa.PolicyAR(jspec, jcfg)
     with open(CKPT, "rb") as f:
         blob = pickle.load(f)
+    jrw = jconfig.KinPolyConfig("kin_poly").reward_weights()
+    trw = KinPolyConfig().reward_weights()
+    jrw = type(jrw)(**{**jrw.__dict__, "reward_id": reward_id})
+    trw = type(trw)(**{**trw.__dict__, "reward_id": reward_id})
     jenv = jhar.HumanoidAREnv(
         jm, jcfg, jconfig.UHCConfig("uhc", "results").env_config(),
-        jconfig.KinPolyConfig("kin_poly").reward_weights(), context=None,
-        cc_policy_apply=jnets.PolicyMCP(action_dim=75).apply,
-        cc_policy_params=blob["policy_params"],
-        cc_norm=jrn.RunningNorm(*blob["norm"]), mode="test", wild=True,
-        body_diff_thresh=body_diff_thresh)
+        jrw, context=None,
+        cc_policy_apply=jnets.PolicyMCP(action_dim=75,
+                                        log_std_init=cc_log_std).apply,
+        cc_policy_params=jax.tree.map(lambda x: np.asarray(x, np.float64),
+                                      blob["policy_params"]),
+        cc_norm=jrn.RunningNorm(*blob["norm"]), mode=mode, wild=mode == "test",
+        body_diff_thresh=body_diff_thresh,
+        body_diff_gt_thresh=body_diff_gt_thresh)
     cc_policy, cc_norm = load_uhc(CKPT, "cpu", torch.float64)
-    tenv = HumanoidAREnv(tm, tcfg, UHCConfig().env_config(),
-                         KinPolyConfig().reward_weights(), None, cc_policy,
-                         cc_norm, mode="test", body_diff_thresh=body_diff_thresh)
+    cc_policy.log_std_init = cc_log_std
+    tenv = HumanoidAREnv(tm, tcfg, UHCConfig().env_config(), trw, None,
+                         cc_policy, cc_norm, mode=mode,
+                         body_diff_thresh=body_diff_thresh,
+                         body_diff_gt_thresh=body_diff_gt_thresh)
     agent = AgentAR(tenv, ds)
     params = jax.tree.map(lambda x: np.asarray(x, np.float64),
                           jp.init_params(jax.random.PRNGKey(0), jclip))
@@ -110,7 +125,7 @@ def build_envs(body_diff_thresh: float = 10.0, n_frames: int = 10):
     return types.SimpleNamespace(spec=spec, jspec=jspec, jm=jm, tm=tm,
                                  jenv=jenv, tenv=tenv, jp=jp, tp=agent.policy,
                                  params=params, jctx=jctx, tctx=tenv.ctx,
-                                 clip=clip, n=len(takes))
+                                 clip=clip, n=len(takes), ds=ds, takes=takes)
 
 
 @pytest.fixture(scope="module")

@@ -62,3 +62,11 @@ def test_modules_import_with_forbidden_blocked():
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert int(proc.stdout.split()[-1]) > 20
+
+
+def test_ar_training_modules_are_covered():
+    """The AR-training modules are among the files scanned above and the
+    modules imported with the forbidden packages blocked."""
+    for mod in ("utils/liveness.py", "rl/optim.py", "rl/agent_ar.py",
+                "scripts/train_ar_policy.py", "scripts/exp_arnet.py"):
+        assert ROOT / "kinpoly_tpu_torch" / mod in FILES, mod

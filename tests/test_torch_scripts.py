@@ -1,8 +1,11 @@
 """CPU drives of the port's UHC scripts on the real bank
-(``data_bank/clips24.pkl``), and of the AR evaluation on the wild bank
-(``data_bank/wild_takes_r5.pkl``), at tiny sizes: what each prints and
-writes."""
+(``data_bank/clips24.pkl``), of the AR evaluation on the wild bank
+(``data_bank/wild_takes_r5.pkl``), and of AR training
+(``train_ar_policy``, ``exp_arnet``) on ``data_bank/ar_train_56.pkl`` and
+on the seeded standing take with small nets, at tiny sizes: what each
+prints and writes."""
 
+import dataclasses
 import json
 import os
 import pickle
@@ -10,10 +13,14 @@ import re
 
 import joblib
 import numpy as np
+import pytest
 import torch
 
 from kinpoly_tpu_torch.data import banks
-from kinpoly_tpu_torch.scripts import eval_ar_policy, eval_uhc, gen_states, train_uhc
+from kinpoly_tpu_torch.config.defaults import KinPolyConfig
+from kinpoly_tpu_torch.models import weights
+from kinpoly_tpu_torch.scripts import (eval_ar_policy, eval_uhc, exp_arnet,
+                                       gen_states, train_ar_policy, train_uhc)
 
 # many tiny torch ops: one intra-op thread per process keeps several test
 # workers from oversubscribing the CPU
@@ -25,6 +32,17 @@ HARD = os.path.join(ROOT, "data_bank/hard_states_getup.pkl")
 WILD = os.path.join(ROOT, "data_bank/wild_takes_r5.pkl")
 AR_MODELS = os.path.join(ROOT, "results_r5/statear/kin_poly/models")
 UHC_CKPT = os.path.join(ROOT, "results/motion_im/uhc/models/iter_13000.p")
+AR_TRAIN = os.path.join(ROOT, "data_bank/ar_train_56.pkl")
+
+
+def small_kin_config(**policy_specs) -> KinPolyConfig:
+    """kin_poly.yml with small nets and batches."""
+    cfg = KinPolyConfig.named("kin_poly")
+    return dataclasses.replace(
+        cfg, fr_num=12, batch_size=3, n_envs=2, rollout_steps=2,
+        model_specs=dict(cfg.model_specs, rnn_hdim=16, mlp_hsize=[16]),
+        policy_specs=dict(cfg.policy_specs, num_optim_epoch=1,
+                          num_step_update=1, **policy_specs))
 
 
 def test_train_uhc_on_the_real_bank_with_hard_states(tmp_path, capsys):
@@ -116,3 +134,74 @@ def test_eval_ar_policy_wild_fail_safe(tmp_path, capsys):
         assert rec["action"] == "sit" and rec["pred"].shape[1] == 76
         assert rec["obj_pose"].shape[1:] == (5, 7)
         assert rec["gt"].shape == rec["pred"].shape
+
+
+@pytest.mark.parametrize("script", [train_ar_policy, exp_arnet])
+def test_ar_training_scripts_need_a_device(script, tmp_path):
+    """Without --device cpu the scripts run on CUDA, and raise here."""
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        script.main(["--out", str(tmp_path)], cfg=small_kin_config())
+
+
+def test_train_ar_policy_warm_start_then_resume(tmp_path, capsys):
+    """A warm start on the 56-take bank and one composite epoch with the
+    joint controller; then a resume of that checkpoint on the seeded take
+    with BC only (and toward the simulated pose), no compaction."""
+    cfg = small_kin_config()
+    train_ar_policy.main(
+        ["--device", "cpu", "--data", AR_TRAIN, "--uhc-checkpoint", UHC_CKPT,
+         "--init-steps", "2", "--full-steps", "1", "--max-epochs", "1",
+         "--joint-controller", "--out", str(tmp_path)], cfg=cfg)
+    out = capsys.readouterr().out
+    assert "init step 0: loss" in out and "full step 0: loss" in out
+    assert "warm start: 2 init-state and 1 full-AR steps" in out
+    assert re.search(r"epoch 0  R [0-9.]+  bc [0-9.]+  ppo -?[0-9.]+", out)
+    models = tmp_path / "statear" / "kin_poly" / "models"
+    for it in (0, 1):
+        assert (models / f"iter_{it:04d}.p").is_file()
+    ck = weights.read_checkpoint(str(models / "iter_0001.p"))
+    assert ck["epoch"] == 1 and ck["cc_params"] is not None
+    assert sum(len(v) for v in ck["freq"].values()) > 0
+    train_ar_policy.main(
+        ["--device", "cpu", "--iter", "1", "--skip-init", "--max-epochs", "2",
+         "--no-rl-update", "--step-update-dyna", "--no-compact",
+         "--out", str(tmp_path)], cfg=cfg)
+    out = capsys.readouterr().out
+    assert "resumed" in out and "a seeded standing take" in out
+    assert re.search(r"epoch 1  R [0-9.]+  bc [0-9.]+  ppo 0.0000", out)
+    ck = weights.read_checkpoint(str(models / "iter_0002.p"))
+    assert ck["epoch"] == 2 and ck["cc_params"] is None
+    lines = (models / "ar_kin_poly_metrics.jsonl").read_text().splitlines()
+    recs = [json.loads(x) for x in lines]
+    assert [r["step"] for r in recs] == [0, 1]
+    assert all(np.isfinite(r[k]) for r in recs for k in
+               ("reward_mean", "bc_loss", "ppo_loss", "value_loss", "cc_loss",
+                "fail_frac", "ratio_dev", "ppo_grad_norm", "adv_std",
+                "bc_nan_frac", "T_iter"))
+    assert recs[0]["ppo_grad_norm"] > 0 and recs[1]["ppo_grad_norm"] == 0
+    assert "saved final checkpoint" in (tmp_path / "statear" / "kin_poly"
+                                        / "log.txt").read_text()
+
+
+def test_exp_arnet_trains_and_tests(tmp_path, capsys):
+    """Two epochs on the seeded take (a checkpoint at 2), then --test of
+    that checkpoint: one take's pose metrics and the MEAN row."""
+    cfg = small_kin_config(save_model_interval=2)
+    _, losses = exp_arnet.main(["--device", "cpu", "--epochs", "2",
+                                "--out", str(tmp_path)], cfg=cfg)
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    out = capsys.readouterr().out
+    assert re.search(r"epoch 0 fr 80 gt 0.30 loss [0-9.]+", out)
+    assert "2 epochs in" in out
+    ck = tmp_path / "statear" / "kin_poly" / "models" / "arnet_iter_0002.p"
+    with open(ck, "rb") as f:
+        blob = pickle.load(f)
+    assert blob["epoch"] == 2 and sorted(blob["params"]["params"]) == [
+        "action_fc", "action_gru", "action_mlp", "context_fc", "context_gru",
+        "context_mlp"]
+    _, rows = exp_arnet.main(["--device", "cpu", "--test", "--iter", "2",
+                              "--out", str(tmp_path)], cfg=cfg)
+    out = capsys.readouterr().out
+    assert len(rows) == 1 and all(np.isfinite(v) for v in rows[0].values())
+    assert re.search(r"take 0: root_dist:[0-9.]+ head_dist", out)
+    assert "MEAN  root_dist" in out
