@@ -81,6 +81,31 @@ Phases, one line each with its seconds:
               prints seconds per epoch, rollout ms per control step, PPO,
               BC and controller update ms, ms per warm-start step and peak
               memory
+ 12. use_of   the use_of configuration (policy_v 2: the residual head
+              ActionDeltaNet on the AR rollout's pose; the optical-flow
+              features in the context and the observation) at use_of.yml's
+              widths: (a) eval_ar_policy's path with the tracked warm start
+              results_r4/.../use_of/models/iter_0000.p and iter_13000.p as
+              the controller on the 12 takes of
+              data_bank/wild_takes_r5_of.pkl, 60 control steps, launch
+              counters set to 0 just before and read just after (exactly
+              30/15/15[R=49]/15 per step), humanoid, object state and
+              rewards finite; prints ms per control step, coverage and the
+              MEAN row; (b) one AR env step of 4 seeded push takes (seeded
+              flow features) with the box on the right hand, card float32
+              against CPU float64 (gated as in 10); (c) train_ar_policy
+              --cfg use_of --iter 0 --force-init on a copy of iter_0000.p
+              and data_bank/action_takes_of.pkl: a warm start of 3
+              init-state and 2 full-AR steps at batch 256, then 2
+              composite epochs of 64 envs, the rollout cut from 125 to 16
+              control steps, launches counted as in (a); every metric
+              finite, ppo_grad_norm and ratio_dev above 0, bc_nan_frac 0,
+              the final checkpoint holds {"arnet", "delta"} and reads back
+              equal; (d) compute_of_features (Horn-Schunck pyramid flow,
+              3 levels, and the ResNet-18 encoder of
+              data_bank/of_encoder.pkl) on a seeded uint8 clip of 64 x 64
+              frames, card float32 against the CPU float64 port within
+              1e-3; prints ms per frame
 Then a JSON line with every kernel's numbers, the card's nvidia-smi line,
 and as the last line {"ok": true, "device": {...}}. Any failure exits
 non-zero before that line; a watchdog ends the run past 10 minutes.
@@ -133,6 +158,15 @@ AR_TRAIN_EPOCHS = 2
 ARNET_EPOCHS = 3
 AR_BC_ENVS = 16               # the step-BC parity's recorded trajectory
 STEP_LOSS_RTOL, STEP_GRAD_RTOL = 1e-3, 1e-2
+# the use_of phase
+WILD_OF = os.path.join("data_bank", "wild_takes_r5_of.pkl")   # the 12 takes + of
+OF_ITER, OF_OUT = 0, "results_r4"     # results_r4/statear/use_of/models/
+OF_TRAIN = os.path.join("data_bank", "action_takes_of.pkl")   # 24 x 150 frames
+OF_INIT_STEPS, OF_FULL_STEPS = 3, 2   # warm-start steps at batch 256
+OF_TRAIN_STEPS = 16                   # rollout depth, cut from use_of.yml's 125
+OF_TRAIN_EPOCHS = 2
+OF_FRAMES = 32                        # the flow clip, 64 x 64
+OF_ATOL = 1e-3                        # flow features, card f32 vs CPU f64
 T0 = time.perf_counter()
 
 
@@ -533,20 +567,24 @@ def ar_kernel_entries(device, kernels: list) -> tuple[list[dict], str]:
     return [k2, k3], msg
 
 
-def ar_step_parity(takes, device, here: str, box_on_the_hand: bool):
+def ar_step_parity(takes, device, here: str, box_on_the_hand: bool,
+                   cfg=None, iter_: int = AR_ITER, out: str = AR_OUT):
     """One AR env step of one env per take, card (float32, kernels) against
     the CPU float64 plain path, from the CPU's context bank (cast to the
     card) and the CPU policy's mean action: max abs difference of humanoid
     and object state, and of the reward and its components. With
     `box_on_the_hand` the box is moved onto each env's right hand at the
-    reset pose."""
+    reset pose. `cfg`, `iter_`, `out`: the named config and its checkpoint
+    (kin_poly's iter_0800.p by default)."""
     import torch
     from kinpoly_tpu_torch.scripts import eval_ar_policy as ear
 
     kw = dict(uhc_checkpoint=os.path.join(here, UHC_CKPT),
-              out_root=os.path.join(here, AR_OUT))
-    evs = [ear.build_eval(takes, AR_ITER, device, **kw),
-           ear.build_eval(takes, AR_ITER, "cpu", torch.float64, **kw)]
+              out_root=os.path.join(here, out), cfg=cfg)
+    evs = [ear.build_eval(takes, iter_, device, **kw),
+           ear.build_eval(takes, iter_, "cpu", torch.float64, **kw)]
+    if not all(ev.loaded for ev in evs):
+        fail(f"no AR checkpoint iter_{iter_:04d}.p under {out}")
     ctx = evs[1].ctx
     if box_on_the_hand:
         box = box_on_hand(evs[1].model, ctx.init_qpos)
@@ -784,6 +822,91 @@ def step_bc_parity(agent) -> tuple[float, float]:
     (l32, g32), (l64, g64) = out
     return (abs(l32 - l64) / abs(l64),
             float(torch.linalg.norm(g32 - g64) / torch.linalg.norm(g64)))
+
+
+def use_of_training(device, here: str) -> dict:
+    """(c) train_ar_policy --cfg use_of --iter 0 --force-init on a copy of
+    the tracked warm start in a temporary directory: OF_INIT_STEPS +
+    OF_FULL_STEPS more warm-start steps, then OF_TRAIN_EPOCHS epochs at
+    OF_TRAIN_STEPS control steps, launches counted over the whole run (the
+    warm start runs no physics); the metrics stream and the final
+    checkpoint read back."""
+    import shutil
+
+    import torch
+    from kinpoly_tpu_torch import native
+    from kinpoly_tpu_torch.config.defaults import KinPolyConfig
+    from kinpoly_tpu_torch.models import weights
+    from kinpoly_tpu_torch.rl.agent_ar import AgentAR
+    from kinpoly_tpu_torch.scripts import train_ar_policy as tap
+
+    cfg = KinPolyConfig.named("use_of")
+    with tempfile.TemporaryDirectory() as tmp:
+        mdir = cfg.model_dir(tmp)
+        os.makedirs(mdir)
+        shutil.copy(os.path.join(here, cfg.model_dir(OF_OUT),
+                                 f"iter_{OF_ITER:04d}.p"), mdir)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        native.LAUNCHES.clear()
+        AgentAR.time_phases = True
+        t0 = time.perf_counter()
+        try:
+            agent = tap.main([
+                "--cfg", "use_of", "--data", os.path.join(here, OF_TRAIN),
+                "--uhc-checkpoint", os.path.join(here, UHC_CKPT), "--out",
+                tmp, "--iter", str(OF_ITER), "--force-init", "--init-steps", str(OF_INIT_STEPS), "--full-steps",
+                str(OF_FULL_STEPS), "--max-epochs", str(OF_TRAIN_EPOCHS),
+                "--rollout-steps", str(OF_TRAIN_STEPS), "--device", "cuda"])
+            torch.cuda.synchronize()
+        finally:
+            AgentAR.time_phases = False
+        wall = time.perf_counter() - t0
+        launches = dict(native.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with open(os.path.join(mdir, f"ar_{cfg.name}_metrics.jsonl")) as f:
+            metrics = [json.loads(line) for line in f]
+        path = os.path.join(mdir, f"iter_{OF_TRAIN_EPOCHS:04d}.p")
+        layout = sorted(weights.read_checkpoint(path)["params"])
+        ck = weights.load_ar_checkpoint(path)
+    pol = agent.policy
+    same = (layout == ["arnet", "delta"] and ck["epoch"] == agent.epoch
+            and all(torch.equal(ck[k][n].to(v.device), v)
+                    for k, m in (("policy", pol.net), ("delta", pol.delta_net),
+                                 ("value", agent.value))
+                    for n, v in m.state_dict().items()))
+    return dict(agent=agent, launches=launches, metrics=metrics, same=same,
+                layout=layout, peak=peak, wall=wall)
+
+
+def seeded_of_takes(spec, n: int) -> list[dict]:
+    """n seeded push takes of 8 frames (``standing_take``), each with
+    seeded unit-normal flow features."""
+    from kinpoly_tpu_torch.scripts import eval_ar_policy as ear
+
+    takes = []
+    for s in range(n):
+        t = ear.standing_take(spec, 8, seed=s, action="push")
+        t["of"] = np.random.RandomState(s).normal(
+            size=(8, 512)).astype(np.float32)
+        takes.append(t)
+    return takes
+
+
+def seeded_gray_clip(n: int, seed: int) -> np.ndarray:
+    """(n, 64, 64) uint8: three Gaussian blobs drifting 1.5 and 0.7 pixels
+    per frame over uniform noise."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:64, 0:64]
+    frames = []
+    for t in range(n):
+        img = rng.uniform(0, 30, (64, 64))
+        for cx, cy, r, a in ((20, 30, 8, 120), (44, 20, 6, 90),
+                             (40, 48, 10, 60)):
+            img += a * np.exp(-((xx - cx - 1.5 * t) ** 2
+                                + (yy - cy - 0.7 * t) ** 2) / (2 * r * r))
+        frames.append(np.clip(img, 0, 255).astype(np.uint8))
+    return np.stack(frames)
 
 
 def main() -> None:
@@ -1296,6 +1419,121 @@ def main() -> None:
         fail(f"step-BC loss card vs CPU rel err {loss_rel:.3g}")
     if not grad_rel < STEP_GRAD_RTOL:
         fail(f"step-BC gradient card vs CPU rel L2 err {grad_rel:.3g}")
+
+    # 12. use_of: policy_v 2 and the optical-flow features --------------------
+    tp = time.perf_counter()
+    from kinpoly_tpu_torch.config.defaults import KinPolyConfig
+    from kinpoly_tpu_torch.data import video
+    of_cfg = KinPolyConfig.named("use_of")
+    wild_of = ear.get_takes(spec_o, os.path.join(here, WILD_OF))
+    ev = ear.build_eval(wild_of, OF_ITER, device,
+                        uhc_checkpoint=os.path.join(here, UHC_CKPT),
+                        out_root=os.path.join(here, OF_OUT), cfg=of_cfg)
+    torch.cuda.synchronize()
+    if not ev.loaded:
+        fail(f"no use_of checkpoint iter_{OF_ITER:04d}.p under {OF_OUT}")
+    if ev.agent.policy.policy_v != 2 or ev.ctx.of is None:
+        fail("the use_of evaluation runs no residual head or no flow features")
+    ctx_s = time.perf_counter() - tp
+    native.LAUNCHES.clear()
+    t_run = time.perf_counter()
+    traj = ear.rollout(ev, AR_STEPS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_run
+    launches = dict(native.LAUNCHES)
+    expect = {"ltdl_factor": 30 * AR_STEPS, "ltdl_solve[R=1]": 15 * AR_STEPS,
+              "ltdl_solve[R=49]": 15 * AR_STEPS, "pgs_solve": 15 * AR_STEPS}
+    finite = all(bool(torch.isfinite(x).all()) for x in (
+        traj.res_qpos, traj.obj_qpos, traj.actions, traj.rewards))
+    rows, records = ear.take_rows(ev, traj)
+    summ = ear.summary(rows, records)
+    say("use_of", f"(a) eval_ar_policy --cfg use_of --iter {OF_ITER} on the "
+        f"{ev.n_takes} takes of {WILD_OF} (longest {ev.batch.qpos.shape[1]} "
+        f"frames), context {ctx_s:.2f} s; {AR_STEPS} control steps: "
+        f"{run_s / AR_STEPS * 1e3:.1f} ms per control step, launches "
+        f"{launches} (expected {expect}), finite {finite}; coverage "
+        f"{summ['coverage']:.4f}, success {summ['succ']}; MEAN "
+        + " ".join(f"{k}:{v:.3f}" for k, v in summ["mean"].items()), tp)
+    if launches != expect:
+        fail(f"use_of kernel launches {launches} != {expect}")
+    if not finite or tuple(traj.actions.shape[1:]) != (ev.n_takes, 76):
+        fail("non-finite or misshapen state, action or reward in use_of")
+    if not all(np.isfinite(v) for r in rows for v in r.values()):
+        fail(f"non-finite use_of pose metrics or success: {rows}")
+    for k in kernels:
+        k["launches_by_path"]["use_of_eval"] = launches.get(
+            ar_rows.get(k["name"], ""), 0)
+    del ev, traj
+    tp = time.perf_counter()
+    qerr, rerr = ar_step_parity(seeded_of_takes(spec_o, 4), device, here,
+                                box_on_the_hand=True, cfg=of_cfg,
+                                iter_=OF_ITER, out=OF_OUT)
+    say("use_of", f"(b) one AR env step under policy_v 2, 4 seeded push "
+        f"takes with the box on the right hand, card f32 vs CPU f64: state "
+        f"and objects max abs err {qerr:.3g} (tol {PARITY_ATOL}), reward "
+        f"and components {rerr:.3g} (tol {REWARD_ATOL})", tp)
+    if not qerr < PARITY_ATOL:
+        fail(f"use_of card vs CPU state error {qerr:.3g}")
+    if not rerr < REWARD_ATOL:
+        fail(f"use_of card vs CPU reward error {rerr:.3g}")
+    tp = time.perf_counter()
+    ot = use_of_training(device, here)
+    n = OF_TRAIN_EPOCHS * OF_TRAIN_STEPS
+    expect = {"ltdl_factor": 30 * n, "ltdl_solve[R=1]": 15 * n,
+              "ltdl_solve[R=49]": 15 * n, "pgs_solve": 15 * n}
+    ms = ot["metrics"]
+    finite = all(k in m and np.isfinite(m[k]) for m in ms for k in keys)
+    ph = ot["agent"].phase_s
+    say("use_of", f"(c) train_ar_policy --cfg use_of --iter {OF_ITER} "
+        f"--force-init on {OF_TRAIN}: warm start of {OF_INIT_STEPS} init-state and {OF_FULL_STEPS} full-AR "
+        f"steps at batch {ot['agent'].cfg.batch_size}, then "
+        f"{OF_TRAIN_EPOCHS} epochs of {ot['agent'].cfg.n_envs} envs x "
+        f"{OF_TRAIN_STEPS} control steps, {ot['wall']:.1f} s in all: "
+        + "; ".join(
+            f"epoch {m['step']}: {m['T_iter']:.2f} s, R {m['reward_mean']:.4f}, "
+            f"bc {m['bc_loss']:.4g}, ppo {m['ppo_loss']:.4g}, fail "
+            f"{m['fail_frac']:.3f}, |r-1| {m['ratio_dev']:.4g}, pg "
+            f"{m['ppo_grad_norm']:.4g}, bc_nan_frac {m['bc_nan_frac']:.3f}"
+            for m in ms)
+        + f"; per epoch: context {ph.get('context', 0) / OF_TRAIN_EPOCHS:.3f} "
+        f"s, rollout {ph.get('rollout', 0) / n * 1e3:.1f} ms per control "
+        f"step, PPO {ph.get('ppo', 0) / OF_TRAIN_EPOCHS * 1e3:.1f} ms, BC "
+        f"{ph.get('bc', 0) / OF_TRAIN_EPOCHS * 1e3:.1f} ms; launches "
+        f"{ot['launches']} (expected {expect}); checkpoint params "
+        f"{ot['layout']}, read back equal {ot['same']}; peak memory "
+        f"{ot['peak']:.2f} GiB", tp)
+    if ot["launches"] != expect:
+        fail(f"use_of training launches {ot['launches']} != {expect}")
+    if len(ms) != OF_TRAIN_EPOCHS or not finite:
+        fail(f"use_of training metrics missing or non-finite: {ms}")
+    if not all(m["ppo_grad_norm"] > 0 and m["ratio_dev"] > 0 for m in ms):
+        fail("dead PPO on the residual head: ppo_grad_norm or ratio_dev is 0")
+    if any(m["bc_nan_frac"] != 0 for m in ms):
+        fail("non-finite step-BC gradients in use_of (bc_nan_frac > 0)")
+    if not ot["same"]:
+        fail(f"the use_of checkpoint ({ot['layout']}) reads back different")
+    for k in kernels:
+        k["launches_by_path"]["use_of_train"] = ot["launches"].get(
+            ar_rows.get(k["name"], ""), 0)
+    del ot
+    tp = time.perf_counter()
+    frames = seeded_gray_clip(OF_FRAMES, 0)
+    enc = video.FlowFeatureEncoder(device=device)
+    feats = video.compute_of_features(frames, enc)
+    of_ms = cuda_ms(lambda: video.compute_of_features(frames, enc), 5)
+    ref = video.compute_of_features(frames, video.FlowFeatureEncoder(
+        device="cpu", dtype=torch.float64))
+    of_err = float((feats.double().cpu() - ref).abs().max())
+    say("use_of", f"(d) compute_of_features on {OF_FRAMES} seeded uint8 "
+        f"frames of 64 x 64 (3 levels, the encoder of of_encoder.pkl): "
+        f"{of_ms:.2f} ms per clip, {of_ms / OF_FRAMES:.3f} ms per frame; "
+        f"card f32 vs CPU f64 max abs err {of_err:.3g} (tol {OF_ATOL}), "
+        f"max |feature| {float(ref.abs().max()):.3g}", tp)
+    if tuple(feats.shape) != (OF_FRAMES, 512) or not bool(
+            torch.isfinite(feats).all()):
+        fail(f"flow features of shape {tuple(feats.shape)} or non-finite")
+    if not of_err < OF_ATOL:
+        fail(f"flow features card vs CPU max abs err {of_err:.3g}")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)

@@ -242,11 +242,22 @@ NAMED_KIN_CONFIGS = {
     "kin_poly_wo_action": dict(
         use_action=False, model_specs=_KIN_MODEL_SPECS_NO_W,
         policy_specs=dict(policy_v=1, rl_update=True, step_update=True)),
-}
-# configs of the JAX package that the port cannot run yet, and why
-UNPORTED_KIN_CONFIGS = {
-    "use_of": "policy_v 2 (the residual head ActionDeltaNet) and the "
-              "optical-flow features (data/video.py, models/aux_nets.py)",
+    # optical-flow conditioning with the residual policy (use_of.yml): the
+    # flow features in the context GRU and the policy's observation, the
+    # step context features, policy_v 2, dynamic_supervision_v3
+    "use_of": dict(
+        seed=1, use_of=True, use_context=True, lr=1.0e-4, num_epoch=2000,
+        rollout_steps=125,
+        model_specs=dict(_KIN_MODEL_SPECS, rnn_hdim=256, cnn_fdim=512),
+        policy_specs=dict(
+            policy_v=2, log_std=-3.5, fix_std=True, gamma=0.95, tau=0.95,
+            policy_lr=5.0e-5, value_lr=3.0e-4, clip_epsilon=0.2,
+            min_batch_size=8000, reward_id="dynamic_supervision_v3",
+            max_iter_num=20000, save_model_interval=50, rl_update=True,
+            step_update=True, num_optim_epoch=10, num_step_update=20,
+            body_diff_thresh=10.0, body_diff_gt_thresh=12.0,
+            reward_weights=dict(k_hp=45, k_hq=20, k_p=20, k_jp=50, k_rp=45,
+                                k_rq=45, k_act_p=5, k_act_v=0.001))),
 }
 
 
@@ -279,9 +290,6 @@ class KinPolyConfig:
 
     @classmethod
     def named(cls, name: str) -> "KinPolyConfig":
-        if name in UNPORTED_KIN_CONFIGS:
-            raise ValueError(f"config {name!r} is not ported: it needs "
-                             f"{UNPORTED_KIN_CONFIGS[name]}")
         if name not in NAMED_KIN_CONFIGS:
             raise ValueError(f"unknown kinematic-policy config {name!r}; "
                              f"available: {sorted(NAMED_KIN_CONFIGS)}")

@@ -1,8 +1,10 @@
 """The kinematic-policy environment (port of
 ``kinpoly_tpu/envs/humanoid_ar.py``), over a batch of envs.
 
-The action is the next frame's kinematic pose proposal (80-d, policy_v 1).
-The env integrates it (``traj_ar.step_ar``), bounds it, turns it into the
+The action is the next frame's kinematic pose proposal: an 80-d kinematic
+update with policy_v 1, which the env integrates (``traj_ar.step_ar``), or
+the 76-d next qpos itself with policy_v 2, whose observation ends with the
+AR rollout's pose at the current frame. The env bounds it, turns it into the
 UHC tracking target by FK, runs the UHC controller in the loop (its mean
 action in mode "test", a sample of its Gaussian in mode "train"), steps
 the physics with the scene objects (movable: in the sim state; static:
@@ -11,8 +13,7 @@ the kin-poly reward of ``reward_id`` (``rl/rewards.get_kin_poly_reward``).
 A non-finite step snaps to the target and terminates; so does a summed
 body distance to the target beyond ``body_diff_thresh``, and in mode
 "train" (unless ``wild``) one to the ground truth beyond
-``body_diff_gt_thresh``. The residual policy of policy_v 2 (a 76-d qpos
-action, the AR pose in the observation) is not ported.
+``body_diff_gt_thresh``.
 """
 
 from __future__ import annotations
@@ -124,10 +125,8 @@ class HumanoidAREnv:
                  env_episode_len: int = 100000, policy_v: int = 1):
         if mode not in ("train", "test"):
             raise ValueError(f"mode {mode!r}: 'train' or 'test'")
-        if policy_v != 1:
-            raise ValueError(f"policy_v {policy_v} is not ported: its "
-                             f"residual head (ActionDeltaNet) and the AR "
-                             f"pose in the observation come with use_of")
+        if policy_v not in (1, 2):
+            raise ValueError(f"policy_v {policy_v}: 1 or 2")
         self.reward_fn = (None if reward_w.reward_id == "dynamic_supervision_v1"
                           else rwlib.get_kin_poly_reward(reward_w.reward_id))
         self.model, self.kin_cfg, self.cc_cfg, self.rw = (model, kin_cfg,
@@ -158,7 +157,7 @@ class HumanoidAREnv:
         self.obj_park = t(park)
         names = [o.name for o in spec.objects]
         self.table_idx = names.index("table") if "table" in names else None
-        self.action_dim = kin_cfg.action_dim
+        self.action_dim = 76 if policy_v == 2 else kin_cfg.action_dim
 
     # -- context access ------------------------------------------------------
 
@@ -194,7 +193,7 @@ class HumanoidAREnv:
                     if kc.use_context or kc.use_of else None)
         of_t = extra("of", kc.of_dim) if kc.use_of else None
         t = state.cur_t
-        return ar_obs(
+        obs = ar_obs(
             self.model.spec, self.model.st, kc, sim.qpos, sim.qvel,
             self._at(ctx, state, "head_pose", t),
             self._at(ctx, state, "head_vels", t),
@@ -202,6 +201,10 @@ class HumanoidAREnv:
             self._at(ctx, state, "obj_head_relative_poses", t),
             self._at(ctx, state, "action_one_hot", 0), of_t=of_t,
             context_feat_t=ctx_feat, as_policy=True, fk_res=state.sim_fk)[0]
+        if self.policy_v == 2:
+            # the residual policy's base: the AR rollout's pose at t
+            obs = torch.cat([obs, self._at(ctx, state, "ar_qpos", t)], dim=-1)
+        return obs
 
     # -- the UHC controller in the loop ----------------------------------------
 
@@ -233,8 +236,11 @@ class HumanoidAREnv:
         of training)."""
         model = self.model
         prev_sim = state.sim
+        # policy_v 2: the action is the next qpos
+        next_qpos = a if self.policy_v == 2 else step_ar(prev_sim.qpos, a,
+                                                        self.kin_cfg)
         next_qpos = clamp_qpos(model.jnt_lo, model.jnt_hi, prev_sim.qpos,
-                               step_ar(prev_sim.qpos, a, self.kin_cfg))
+                               next_qpos)
         target, _ = self.target_frame(next_qpos)
         tgt_bquat = fklib.body_quat_sim(next_qpos)
         cc_obs = self.cc_obs(prev_sim, target, fk_res=state.sim_fk)

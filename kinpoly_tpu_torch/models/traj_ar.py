@@ -14,6 +14,11 @@ use_context or use_of):
   linvel 3, target obj-rel-head 7, (+ action one-hot 4 as a policy)]
 - action         (B, 80): [z 1, root quat 4, body pose 69, root vel 6]
 
+With use_of and use_context (use_of.yml) the context input leads with the
+frame's flow features (512 + 17 = 529), the AR state with the context
+GRU's feature at that frame (rnn_hdim), and as a policy the state ends
+with the flow features (873 at use_of.yml's widths).
+
 The GRUs follow flax's ``GRUCell``: r, z = sigmoid(W_i x + b_i + W_h h)
 with no hidden bias on r and z, n = tanh(W_in x + b_in + r (W_hn h +
 b_hn)), h' = (1 - z) n + z h. Torch's GRU computes the same with its r and
@@ -214,7 +219,7 @@ def obs_dim(cfg: TrajARConfig, as_policy: bool = False) -> int:
     return d
 
 
-def _zero_rz_grad(g: torch.Tensor) -> torch.Tensor:
+def zero_rz_grad(g: torch.Tensor) -> torch.Tensor:
     """A GRU hidden bias's gradient with its r and z thirds zeroed: flax's
     GRUCell has no such bias, so the torch GRU keeps them at 0."""
     g = g.clone()
@@ -243,7 +248,7 @@ class TrajARNet(nn.Module):
         self.action_fc = _linear(cfg.mlp_hsize[-1], cfg.action_dim)
         for name, p in self.named_parameters():
             if name.rsplit(".", 1)[-1].startswith("bias_hh"):
-                p.register_hook(_zero_rz_grad)
+                p.register_hook(zero_rz_grad)
 
     def context_input(self, data: ClipData) -> torch.Tensor:
         c = self.cfg

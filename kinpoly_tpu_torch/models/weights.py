@@ -1,6 +1,7 @@
 """Read and write UHC checkpoints (``results/motion_im/uhc/models/iter_*.p``)
-and the kinematic policy's (``results*/statear/kin_poly/models/iter_*.p``)
-in the JAX package's layout.
+and the kinematic policy's (``results*/statear/<cfg>/models/iter_*.p``)
+in the JAX package's layout, and map the flow encoder's flax ResNet-18
+(``data_bank/of_encoder.pkl``) onto the port's.
 
 The checkpoints are plain pickles of numpy arrays: flax parameter trees for
 the policy and the value net, and a ``kinpoly_tpu.rl.running_norm.RunningNorm``.
@@ -16,7 +17,10 @@ flax trees (nested dicts of numpy arrays) that the port's trainer saves.
 A flax ``GRUCell`` (``ir/iz/in`` with biases, ``hr/hz`` without, ``hn``
 with) becomes a torch GRU's stacked (r, z, n) weights with zero hidden
 biases on r and z (``trajar_from_jax``), and back (``trajar_to_jax``,
-which refuses a non-zero r or z hidden bias: flax has no place for it).
+which refuses a non-zero r or z hidden bias: flax has no place for it);
+so does policy_v 2's residual head (``delta_from_jax``/``delta_to_jax``),
+which a policy_v 2 checkpoint stores beside TrajARNet as
+``params = {"arnet": ..., "delta": ...}``.
 """
 
 from __future__ import annotations
@@ -192,14 +196,77 @@ def trajar_to_jax(sd: dict) -> dict:
     return {"params": p}
 
 
+def delta_from_jax(params: dict) -> dict:
+    """flax ActionDeltaNet params -> the state dict of
+    ``policy_ar.ActionDeltaNet``."""
+    p = params["params"]
+    sd = _gru("rnn", p["rnn"])
+    sd.update(_mlp("mlp", p["mlp"]))
+    sd.update(_dense("fc", p["fc"]))
+    return sd
+
+
+def delta_to_jax(sd: dict) -> dict:
+    """``policy_ar.ActionDeltaNet`` state dict -> flax ActionDeltaNet
+    params."""
+    return {"params": {"rnn": _flax_gru(sd, "rnn"),
+                       "mlp": _flax_mlp(sd, "mlp"),
+                       "fc": _flax_dense(sd, "fc")}}
+
+
+def policy_ar_params(policy) -> dict:
+    """A ``policy_ar.PolicyAR``'s flax params: TrajARNet's tree, or with
+    policy_v 2 {"arnet": that tree, "delta": the residual head's}."""
+    arnet = trajar_to_jax(policy.net.state_dict())
+    if policy.delta_net is None:
+        return arnet
+    return {"arnet": arnet,
+            "delta": delta_to_jax(policy.delta_net.state_dict())}
+
+
 def load_ar_checkpoint(path: str) -> dict:
-    """{"policy": TrajARNet state dict, "value": ``nets.Value`` state dict,
-    "cc": the jointly tuned UHC controller's ``nets.PolicyMCP``/
+    """{"policy": TrajARNet state dict, "delta": ``ActionDeltaNet`` state
+    dict of a policy_v 2 checkpoint or None, "value": ``nets.Value`` state
+    dict, "cc": the jointly tuned UHC controller's ``nets.PolicyMCP``/
     ``PolicyGaussian`` state dict or None, "epoch": int, "freq": the
     per-take success history} from a kinematic-policy checkpoint."""
     blob = read_checkpoint(path)
     cc = blob.get("cc_params")
-    return dict(policy=trajar_from_jax(blob["params"]),
+    params = blob["params"]
+    delta = None
+    if "arnet" in params:
+        params, delta = params["arnet"], delta_from_jax(params["delta"])
+    return dict(policy=trajar_from_jax(params), delta=delta,
                 value=value_state_dict(blob["value_params"]),
                 cc=None if cc is None else policy_state_dict(cc),
                 epoch=int(blob["epoch"]), freq=blob.get("freq") or {})
+
+
+def resnet18_from_jax(variables: dict) -> dict:
+    """flax ResNet18 variables ({"params", "batch_stats"}) -> the state
+    dict of ``aux_nets.ResNet18``: ``Conv`` HWIO kernels to OIHW,
+    ``BatchNorm`` scale/bias/mean/var to weight/bias/running_mean/
+    running_var, ``Dense`` transposed."""
+    p, bs = variables["params"], variables["batch_stats"]
+
+    def conv(prefix, d):
+        return {f"{prefix}.weight": _t(np.asarray(d["kernel"]).transpose(3, 2, 0, 1))}
+
+    def bn(prefix, d, stats):
+        return {f"{prefix}.weight": _t(d["scale"]), f"{prefix}.bias": _t(d["bias"]),
+                f"{prefix}.running_mean": _t(stats["mean"]),
+                f"{prefix}.running_var": _t(stats["var"])}
+
+    sd = conv("conv", p["Conv_0"])
+    sd.update(bn("bn", p["BatchNorm_0"], bs["BatchNorm_0"]))
+    i = 0
+    while f"ResBlock_{i}" in p:
+        b, s, pre = p[f"ResBlock_{i}"], bs[f"ResBlock_{i}"], f"blocks.{i}"
+        for j in (0, 1):
+            sd.update(conv(f"{pre}.conv{j}", b[f"Conv_{j}"]))
+            sd.update(bn(f"{pre}.bn{j}", b[f"BatchNorm_{j}"], s[f"BatchNorm_{j}"]))
+        if "Conv_2" in b:
+            sd.update(conv(f"{pre}.shortcut", b["Conv_2"]))
+        i += 1
+    sd.update(_dense("fc", p["Dense_0"]))
+    return sd

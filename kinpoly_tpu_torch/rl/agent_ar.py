@@ -110,15 +110,12 @@ class ARTrainConfig:
     cc_lr: float = 1e-5
 
 
-def _named_grads(module: torch.nn.Module):
-    return [(n, p.grad) for n, p in module.named_parameters()]
-
-
 class AgentAR:
-    """The policy (TrajARNet as PolicyAR) and value net on the env's device
-    and dtype, freshly initialised as flax does (seeded) until a checkpoint
-    is loaded; a live copy of the env's UHC controller, which the rollouts
-    run and ``joint_controller`` tunes; the optimiser chains, the window
+    """The policy (PolicyAR: TrajARNet, and with the env's policy_v 2 the
+    residual head) and value net on the env's device and dtype, freshly
+    initialised as flax does (seeded) until a checkpoint is loaded; a
+    live copy of the env's UHC controller, which the rollouts run and
+    ``joint_controller`` tunes; the optimiser chains, the window
     sampler (numpy, seeded as the JAX agent's and drawn in the same order)
     and a torch generator for the rollouts' and losses' noise."""
 
@@ -143,15 +140,22 @@ class AgentAR:
         # the JAX agent initialises its nets on an example batch of one
         # window; the draw is kept so that later windows are the same
         self.dataset.get_batch(self.np_rng, 1, use_of=self._use_of)
-        self.value = nets.Value(obs_dim(env.kin_cfg, as_policy=True),
-                                hidden=(512, 256))
+        # the value net sees the policy's observation (policy_v 2: with the
+        # AR pose appended)
+        v_dim = obs_dim(env.kin_cfg, as_policy=True)
+        if env.policy_v == 2:
+            v_dim += self.policy.action_dim
+        self.value = nets.Value(v_dim, hidden=(512, 256))
         gen = torch.Generator(device="cpu").manual_seed(cfg.seed)
-        for m in (self.policy.net, self.value):
-            nets.init_flax_(m, gen)
-            m.to(device=model.device, dtype=model.dtype)
+        self.policy.init_flax_(gen).to(device=model.device, dtype=model.dtype)
+        nets.init_flax_(self.value, gen).to(device=model.device,
+                                            dtype=model.dtype)
         self.cc_policy = copy.deepcopy(env.cc_policy)
 
-        net_params = list(self.policy.net.parameters())
+        # the supervised and policy chains cover every policy parameter, as
+        # optax's cover the whole tree: the warm start reaches only
+        # TrajARNet and, with policy_v 2, PPO and step BC only the head
+        net_params = self.policy.parameters()
         self.sup_opt = AdamChain(net_params, cfg.lr, cfg.max_grad_norm,
                                  zero_nans=True)
         self.pol_opt = AdamChain(net_params, cfg.policy_lr, cfg.max_grad_norm)
@@ -185,10 +189,12 @@ class AgentAR:
 
     def _sup_update(self, loss: torch.Tensor) -> torch.Tensor:
         """One step of the supervised chain on `loss`; returns the fraction
-        of gradient leaves that held a non-finite value."""
+        of gradient leaves that held a non-finite value (over every
+        policy parameter, as JAX counts its whole tree)."""
         self.sup_opt.zero_grad()
         loss.backward()
-        nan_frac = grad_nonfinite_fraction(_named_grads(self.policy.net))
+        nan_frac = grad_nonfinite_fraction(
+            [(n, p.grad) for n, p in self.policy.named_parameters()])
         self.sup_opt.step()
         return nan_frac
 
@@ -416,14 +422,14 @@ class AgentAR:
 
     def save_checkpoint(self, path: str | None = None) -> str:
         """A pickle in the JAX package's layout: the flax trees of the
-        policy and value net (numpy), the epoch, the tuned controller's
-        (with ``joint_controller``, else None) and the success history;
-        the JAX ``AgentAR.load_checkpoint`` and ``load_checkpoint`` both
-        read it."""
+        policy ({"arnet", "delta"} with policy_v 2) and value net (numpy),
+        the epoch, the tuned controller's (with ``joint_controller``, else
+        None) and the success history; the JAX ``AgentAR.load_checkpoint``
+        and ``load_checkpoint`` both read it."""
         path = Path(path or self.out_dir / f"iter_{self.epoch:04d}.p")
         path.parent.mkdir(parents=True, exist_ok=True)
         blob = dict(
-            params=weights.trajar_to_jax(self.policy.net.state_dict()),
+            params=weights.policy_ar_params(self.policy),
             value_params=weights.value_params(self.value.state_dict()),
             epoch=self.epoch,
             cc_params=(weights.policy_params(self.cc_policy.state_dict())
@@ -440,7 +446,13 @@ class AgentAR:
         optimiser (no other optimiser is reset, as in JAX). Evaluation
         runs the env's own controller, not this one."""
         ck = weights.load_ar_checkpoint(path)
+        if (ck["delta"] is None) != (self.policy.delta_net is None):
+            raise ValueError(f"{path} holds a policy_v "
+                             f"{1 if ck['delta'] is None else 2} policy; "
+                             f"this agent's is policy_v {self.policy.policy_v}")
         self.policy.net.load_state_dict(ck["policy"])
+        if ck["delta"] is not None:
+            self.policy.delta_net.load_state_dict(ck["delta"])
         self.value.load_state_dict(ck["value"])
         self.epoch = ck["epoch"]
         if ck["cc"] is not None:

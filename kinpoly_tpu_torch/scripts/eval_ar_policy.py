@@ -5,9 +5,14 @@
         --data data_bank/wild_takes_r5.pkl --out results_r5 --iter 800 \\
         --uhc-checkpoint results/motion_im/uhc/models/iter_13000.p \\
         [--fail-safe] [--device cpu] [--takes N --frames F]
+    python -m kinpoly_tpu_torch.scripts.eval_ar_policy --cfg use_of --wild \\
+        --data data_bank/wild_takes_r5_of.pkl --out results_r4 --iter 0 \\
+        --uhc-checkpoint results/motion_im/uhc/models/iter_13000.p
 
 Loads ``<out>/statear/<cfg>/models/iter_<iter>.p`` (fresh seeded weights
-if it is missing), builds the AR env on the synthetic humanoid with its
+if it is missing) of the named config ``--cfg`` (use_of: the takes'
+optical-flow features in the context and the observation, the residual
+policy of policy_v 2), builds the AR env on the synthetic humanoid with its
 five movable objects (contact plan, LTDL, active-set compaction (16, 8):
 kernels K1, K2 and K3 on CUDA) and the frozen UHC controller of
 ``--uhc-checkpoint`` (a fresh one without it), and evaluates one env per
@@ -40,7 +45,8 @@ import torch
 
 from kinpoly_tpu_torch import resolve_device
 from kinpoly_tpu_torch.anim.spec import standing_pose, synthetic_spec
-from kinpoly_tpu_torch.config.defaults import (KinPolyConfig, UHCConfig,
+from kinpoly_tpu_torch.config.defaults import (NAMED_KIN_CONFIGS,
+                                               KinPolyConfig, UHCConfig,
                                                uhc_control_params)
 from kinpoly_tpu_torch.data import statear
 from kinpoly_tpu_torch.envs.humanoid_ar import ARContext, HumanoidAREnv
@@ -53,9 +59,6 @@ from kinpoly_tpu_torch.rl import rollout_ar as roa
 from kinpoly_tpu_torch.rl import running_norm as rn
 from kinpoly_tpu_torch.rl.agent_ar import AgentAR, load_uhc
 from kinpoly_tpu_torch.utils.logger import create_logger
-
-CONFIGS = {"kin_poly": KinPolyConfig}
-
 
 def standing_take(spec, n_frames: int = 120, seed: int = 0,
                   action: str = "sit", walk: float = 0.003) -> dict:
@@ -207,7 +210,7 @@ def summary(rows: list, records: list) -> dict:
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--cfg", default="kin_poly", choices=sorted(CONFIGS))
+    p.add_argument("--cfg", default="kin_poly", choices=sorted(NAMED_KIN_CONFIGS))
     p.add_argument("--iter", type=int, required=True)
     p.add_argument("--data", default=None)
     p.add_argument("--uhc-checkpoint", default=None)
@@ -222,7 +225,7 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     log = create_logger()
-    cfg = CONFIGS[args.cfg]()
+    cfg = KinPolyConfig.named(args.cfg)
     spec = synthetic_spec(with_objects=True)
     takes = get_takes(spec, args.data, args.takes, args.frames)
     t0 = time.perf_counter()

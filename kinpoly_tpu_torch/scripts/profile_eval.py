@@ -7,23 +7,28 @@ an evaluation loop, or over one training iteration or epoch.
     python -m kinpoly_tpu_torch.scripts.profile_eval --train \\
         [--data data_bank/clips24.pkl] [--n-envs 1024] [--steps 8]
     python -m kinpoly_tpu_torch.scripts.profile_eval --ar --steps 5 \\
-        [--data data_bank/wild_takes_r5.pkl] [--ar-iter 800 --out results_r5]
+        [--cfg use_of] [--data BANK] [--ar-iter N --out DIR]
     python -m kinpoly_tpu_torch.scripts.profile_eval --ar-train \
-        [--data data_bank/ar_train_56.pkl] [--ar-iter 800 --out results_r5] \
+        [--cfg use_of] [--data BANK] [--ar-iter N --out DIR] \
         [--n-envs 64] [--steps 156]
 
 Evaluation: one env per take, ``--steps`` control steps. ``--train``: one
 ``train_epoch`` of ``--n-envs`` envs x ``--steps`` control steps (rollout,
 norm, GAE, PPO update) after one warm-up iteration. ``--ar``: the AR
-evaluation of ``eval_ar_policy`` (checkpoint ``--ar-iter`` under
-``--out``, the UHC controller ``--uhc-checkpoint``, one env per take of
-the wild bank by default), ``--steps`` control steps after a 2-step
-warm-up. ``--ar-train``: composite epochs of ``train_ar_policy`` with the
-joint controller (kin_poly.yml's widths, ``--n-envs`` envs, 64 by
-default, on ``ar_train_56.pkl`` from checkpoint ``--ar-iter``, which is
-read and not written): after a warm-up epoch of 4 control steps, one of
-``--steps`` control steps (156) timed per phase (context, rollout, PPO,
-BC, controller) with its peak memory, then one of 8 under the profiler.
+evaluation of ``eval_ar_policy`` under the named config ``--cfg``
+(checkpoint ``--ar-iter`` under ``--out``, the UHC controller
+``--uhc-checkpoint``, one env per take of the config's wild bank by
+default), ``--steps`` control steps after a 2-step warm-up.
+``--ar-train``: composite epochs of ``train_ar_policy`` with the joint
+controller (the config's widths, ``--n-envs`` envs, 64 by default, on
+its training bank from checkpoint ``--ar-iter``, which is read and not
+written): after a warm-up epoch of 4 control steps, one of ``--steps``
+control steps (the config's rollout_steps) timed per phase (context,
+rollout, PPO, BC, controller) with its peak memory, then one of 8 under
+the profiler. The defaults of ``AR_DEFAULTS`` per config: kin_poly
+``iter_0800.p`` under ``results_r5`` on ``wild_takes_r5.pkl`` and
+``ar_train_56.pkl``; use_of ``iter_0000.p`` under ``results_r4`` on
+``wild_takes_r5_of.pkl`` and ``action_takes_of.pkl``.
 
 Prints the host wall time per control step, the device's busy share
 (union of kernel intervals over the profiled wall time), device activities
@@ -44,6 +49,13 @@ from kinpoly_tpu_torch.scripts.eval_uhc import build_agent, get_takes
 from kinpoly_tpu_torch.scripts.train_uhc import build_trainer
 
 AR_PROFILE_STEPS = 8
+# per named config: (evaluation bank, training bank, checkpoint, output root)
+AR_DEFAULTS = {
+    "kin_poly": ("data_bank/wild_takes_r5.pkl", "data_bank/ar_train_56.pkl",
+                 800, "results_r5"),
+    "use_of": ("data_bank/wild_takes_r5_of.pkl",
+               "data_bank/action_takes_of.pkl", 0, "results_r4"),
+}
 _SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
                "cudaMemcpy", "cudaMemcpyAsync", "cudaEventSynchronize")
 
@@ -95,13 +107,13 @@ def profile_ar_train(args) -> None:
     from kinpoly_tpu_torch.rl import rollout_ar as roa
     from kinpoly_tpu_torch.scripts import train_ar_policy as tap
 
-    cfg = KinPolyConfig()
+    cfg = KinPolyConfig.named(args.cfg)
     steps = args.steps or cfg.rollout_steps
     n_envs = args.n_envs or cfg.n_envs
     tc = dataclasses.replace(cfg.train_config(), joint_controller=True,
                              n_envs=n_envs, rollout_steps=steps)
     takes = tap.get_takes(synthetic_spec(with_objects=True),
-                          args.data or "data_bank/ar_train_56.pkl")
+                          args.data or AR_DEFAULTS[args.cfg][1])
     agent = tap.build_agent(takes, cfg, tc, "cuda",
                             uhc_checkpoint=args.uhc_checkpoint)
     agent.load_checkpoint(os.path.join(cfg.model_dir(args.out),
@@ -148,14 +160,19 @@ def main(argv=None):
     p.add_argument("--trace", default=None, help="write a chrome trace here")
     p.add_argument("--ar", action="store_true",
                    help="profile the AR evaluation instead")
-    p.add_argument("--ar-iter", type=int, default=800)
-    p.add_argument("--out", default="results_r5",
+    p.add_argument("--cfg", default="kin_poly", choices=sorted(AR_DEFAULTS),
+                   help="the AR phases' named config")
+    p.add_argument("--ar-iter", type=int, default=None)
+    p.add_argument("--out", default=None,
                    help="output root of the AR checkpoint")
     p.add_argument("--uhc-checkpoint",
                    default="results/motion_im/uhc/models/iter_13000.p")
     p.add_argument("--ar-train", action="store_true",
                    help="time and profile AR training epochs instead")
     args = p.parse_args(argv)
+    _, _, ar_iter, out = AR_DEFAULTS[args.cfg]
+    args.ar_iter = ar_iter if args.ar_iter is None else args.ar_iter
+    args.out = args.out or out
 
     if args.ar_train:
         profile_ar_train(args)
@@ -163,15 +180,17 @@ def main(argv=None):
 
     if args.ar:
         from kinpoly_tpu_torch.anim.spec import synthetic_spec
+        from kinpoly_tpu_torch.config.defaults import KinPolyConfig
         from kinpoly_tpu_torch.scripts import eval_ar_policy as ear
 
         steps = args.steps or 3
         takes = ear.get_takes(synthetic_spec(with_objects=True),
-                              args.data or "data_bank/wild_takes_r5.pkl",
+                              args.data or AR_DEFAULTS[args.cfg][0],
                               args.clips, args.frames)
         ev = ear.build_eval(takes, args.ar_iter, "cuda",
                             uhc_checkpoint=args.uhc_checkpoint,
-                            out_root=args.out)
+                            out_root=args.out,
+                            cfg=KinPolyConfig.named(args.cfg))
         ear.rollout(ev, 2)                                      # warm-up
         profiled(lambda: ear.rollout(ev, steps), steps,
                  f"AR evaluation, {ev.n_takes} envs x {steps} control steps",

@@ -99,7 +99,8 @@ def test_check_supervised_liveness(case):
     assert tlv.NAN_FRAC_WARN == jlv.NAN_FRAC_WARN
 
 
-@pytest.mark.parametrize("name", ["kin_poly", "kin_only", "kin_poly_wo_action"])
+@pytest.mark.parametrize("name", ["kin_poly", "kin_only", "kin_poly_wo_action",
+                                  "use_of"])
 def test_kin_configs_match_yaml(name):
     """Every field of the named config as the YAML has it (a field the
     YAML lacks at the JAX config's default), the derived configs and the
@@ -124,10 +125,8 @@ def test_kin_configs_match_yaml(name):
 
 
 def test_kin_config_unported_and_unknown():
-    with pytest.raises(ValueError, match="policy_v 2"):
-        KinPolyConfig.named("use_of")
-    with pytest.raises(ValueError, match="optical-flow"):
-        KinPolyConfig.named("use_of")
+    """An unknown name raises; every config of the JAX package is ported
+    (use_of since policy_v 2 and the flow features are)."""
     with pytest.raises(ValueError, match="unknown"):
         KinPolyConfig.named("kin_nothing")
     assert KinPolyConfig.named("kin_poly") == KinPolyConfig()

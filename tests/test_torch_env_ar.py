@@ -9,6 +9,7 @@ The takes are the first frames of one wild take per action; the AR net is
 TrajARNet at small widths with fresh flax parameters.
 ``test_torch_rollout_ar.py`` imports ``build_envs``."""
 
+import dataclasses
 import os
 import pickle
 import types
@@ -49,6 +50,7 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CKPT = os.path.join(ROOT, "results/motion_im/uhc/models/iter_13000.p")
 WILD = os.path.join(ROOT, "data_bank", "wild_takes_r5.pkl")
+WILD_OF = os.path.join(ROOT, "data_bank", "wild_takes_r5_of.pkl")
 TAKES = ("wild-sit-00", "wild-push-00", "wild-avoid-00", "wild-step-00")
 SMALL = dict(rnn_hdim=32, mlp_hsize=(48, 24))
 TOL = 1e-9           # the context: float64 kinematics and a small net
@@ -59,13 +61,15 @@ OBS_TOL = 1e-6       # observation, reward, controller action
 def build_envs(body_diff_thresh: float = 10.0, n_frames: int = 10,
                mode: str = "test", reward_id: str = "dynamic_supervision_v1",
                body_diff_gt_thresh: float = 12.0, cc_log_std: float = -2.3,
-               small: dict = SMALL):
+               small: dict = SMALL, cfg_name: str = "kin_poly"):
     """Both packages' AR env over one wild take per action (n_frames each),
     each with the context its own agent builds from the same small AR net:
     a namespace of the JAX and port env, policy, params and context. In
     mode "train" the envs run the ground-truth termination at
     `body_diff_gt_thresh` and sample the controller's actions at
-    `cc_log_std`."""
+    `cc_log_std`. `cfg_name` "use_of": the config's flags (optical flow,
+    step context, policy_v 2 with its residual head) at the small widths,
+    the takes of the flow-feature bank with their `of`."""
     spec = sp.synthetic_spec(0, with_objects=True)
     jspec = jax_spec(spec)
     kw = dict(movable_objects=True, compact_k=(16, 8))
@@ -73,15 +77,20 @@ def build_envs(body_diff_thresh: float = 10.0, n_frames: int = 10,
                           solver="ltdl", with_objects=True, **kw)
     tm = teng.build_model(spec, uhc_control_params(spec), device="cpu",
                           dtype=torch.float64, with_objects=True, **kw)
-    bank = read_bank(WILD)
+    use_of = cfg_name == "use_of"
+    bank = read_bank(WILD_OF if use_of else WILD)
     takes = [dict(tsa.derive_features(
         spec, bank[k]["qpos"][:n_frames].astype(np.float64),
         bank[k]["obj_pose"][:n_frames], bank[k]["action"],
         obj2_pose=(bank[k]["table_pose"][:n_frames]
                    if "table_pose" in bank[k] else None)), name=k)
         for k in TAKES]
+    if use_of:
+        for t, k in zip(takes, TAKES):
+            t["of"] = bank[k]["of"][:n_frames].astype(np.float64)
     ds = tsa.StateARDataset(takes, fr_num=n_frames)
-    clip = tsa.stack_clips([ds.whole_take(i) for i in range(len(takes))])
+    clip = tsa.stack_clips([ds.whole_take(i, use_of=use_of)
+                            for i in range(len(takes))])
     # every float field in float64 (obj_pose14 gives float32): the JAX
     # control step's scan carries the object state in its own dtype
     clip = type(clip)(*(x.astype(np.float64) if x is not None
@@ -89,14 +98,17 @@ def build_envs(body_diff_thresh: float = 10.0, n_frames: int = 10,
     jclip = jta.ClipData(*(None if x is None else jnp.asarray(x) for x in clip))
 
     # fresh flax parameters, carried into the port
-    jcfg, tcfg = jta.TrajARConfig(**small), tta.TrajARConfig(**small)
-    jp = jpa.PolicyAR(jspec, jcfg)
+    jkc, tkc = jconfig.KinPolyConfig(cfg_name), KinPolyConfig.named(cfg_name)
+    jcfg = dataclasses.replace(jkc.traj_ar_config(), **small)
+    tcfg = dataclasses.replace(tkc.traj_ar_config(), **small)
+    policy_v = tkc.policy_specs.get("policy_v", 1)
+    jp = jpa.PolicyAR(jspec, jcfg, policy_v=policy_v)
     with open(CKPT, "rb") as f:
         blob = pickle.load(f)
-    jrw = jconfig.KinPolyConfig("kin_poly").reward_weights()
-    trw = KinPolyConfig().reward_weights()
-    jrw = type(jrw)(**{**jrw.__dict__, "reward_id": reward_id})
-    trw = type(trw)(**{**trw.__dict__, "reward_id": reward_id})
+    jrw, trw = jkc.reward_weights(), tkc.reward_weights()
+    if not use_of:
+        jrw = type(jrw)(**{**jrw.__dict__, "reward_id": reward_id})
+        trw = type(trw)(**{**trw.__dict__, "reward_id": reward_id})
     jenv = jhar.HumanoidAREnv(
         jm, jcfg, jconfig.UHCConfig("uhc", "results").env_config(),
         jrw, context=None,
@@ -106,17 +118,27 @@ def build_envs(body_diff_thresh: float = 10.0, n_frames: int = 10,
                                       blob["policy_params"]),
         cc_norm=jrn.RunningNorm(*blob["norm"]), mode=mode, wild=mode == "test",
         body_diff_thresh=body_diff_thresh,
-        body_diff_gt_thresh=body_diff_gt_thresh)
+        body_diff_gt_thresh=body_diff_gt_thresh, policy_v=policy_v)
     cc_policy, cc_norm = load_uhc(CKPT, "cpu", torch.float64)
     cc_policy.log_std_init = cc_log_std
     tenv = HumanoidAREnv(tm, tcfg, UHCConfig().env_config(), trw, None,
                          cc_policy, cc_norm, mode=mode,
                          body_diff_thresh=body_diff_thresh,
-                         body_diff_gt_thresh=body_diff_gt_thresh)
+                         body_diff_gt_thresh=body_diff_gt_thresh,
+                         policy_v=policy_v)
     agent = AgentAR(tenv, ds)
     params = jax.tree.map(lambda x: np.asarray(x, np.float64),
                           jp.init_params(jax.random.PRNGKey(0), jclip))
-    agent.policy.net.load_state_dict(weights.trajar_from_jax(params))
+    if use_of:
+        # the head's output kernel is zero at init: give it values, so that
+        # the residual shows in the actions
+        fc = params["delta"]["params"]["fc"]
+        fc["kernel"] = np.random.RandomState(7).normal(
+            0, 1e-3, fc["kernel"].shape)
+        agent.policy.delta_net.load_state_dict(
+            weights.delta_from_jax(params["delta"]))
+    agent.policy.net.load_state_dict(weights.trajar_from_jax(
+        params["arnet"] if use_of else params))
     tenv.ctx = agent.build_context(tsa.clip_tensors(clip, torch.float64, "cpu"),
                                    fix_height=True)
     jctx = jaa.AgentAR._build_context(

@@ -33,11 +33,15 @@ WILD = os.path.join(ROOT, "data_bank/wild_takes_r5.pkl")
 AR_MODELS = os.path.join(ROOT, "results_r5/statear/kin_poly/models")
 UHC_CKPT = os.path.join(ROOT, "results/motion_im/uhc/models/iter_13000.p")
 AR_TRAIN = os.path.join(ROOT, "data_bank/ar_train_56.pkl")
+WILD_OF = os.path.join(ROOT, "data_bank/wild_takes_r5_of.pkl")
+TRAIN_OF = os.path.join(ROOT, "data_bank/action_takes_of.pkl")
+USE_OF_MODELS = os.path.join(ROOT, "results_r4/statear/use_of/models")
 
 
-def small_kin_config(**policy_specs) -> KinPolyConfig:
-    """kin_poly.yml with small nets and batches."""
-    cfg = KinPolyConfig.named("kin_poly")
+def small_kin_config(name: str = "kin_poly", **policy_specs) -> KinPolyConfig:
+    """The named config (kin_poly.yml by default) with small nets and
+    batches."""
+    cfg = KinPolyConfig.named(name)
     return dataclasses.replace(
         cfg, fr_num=12, batch_size=3, n_envs=2, rollout_steps=2,
         model_specs=dict(cfg.model_specs, rnn_hdim=16, mlp_hsize=[16]),
@@ -134,6 +138,51 @@ def test_eval_ar_policy_wild_fail_safe(tmp_path, capsys):
         assert rec["action"] == "sit" and rec["pred"].shape[1] == 76
         assert rec["obj_pose"].shape[1:] == (5, 7)
         assert rec["gt"].shape == rec["pred"].shape
+
+
+def test_eval_ar_policy_use_of(tmp_path, capsys):
+    """The use_of warm start iter_0000.p (policy_v 2, the takes' flow
+    features; linked into a fresh output root) with iter_13000.p as the
+    controller on the first 2 takes of the flow-feature wild bank, cut to
+    6 frames."""
+    models = tmp_path / "statear" / "use_of" / "models"
+    models.parent.mkdir(parents=True)
+    os.symlink(USE_OF_MODELS, models)
+    eval_ar_policy.main(["--cfg", "use_of", "--device", "cpu", "--wild",
+                         "--data", WILD_OF, "--takes", "2", "--frames", "6",
+                         "--iter", "0", "--uhc-checkpoint", UHC_CKPT,
+                         "--out", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "not found" not in out
+    assert re.search(r"2 takes, 5 control steps on cpu", out)
+    assert re.search(r"take 1 wild-sit-01 \[sit\]: pct [0-9.]+ fs \d+", out)
+    mean = re.search(r"MEAN  (.*)", out).group(1)
+    vals = dict(kv.split(":") for kv in mean.split())
+    assert all(np.isfinite(float(v)) for v in vals.values())
+    assert re.search(r"coverage: [0-9.]+ over 2 takes", out)
+    res = tmp_path / "statear" / "use_of" / "results"
+    with open(res / "0000_wild_take0_coverage_full.pkl", "rb") as f:
+        rec = pickle.load(f)
+    assert rec["pred"].shape[1] == 76 and np.isfinite(rec["pred"]).all()
+
+
+def test_train_ar_policy_use_of(tmp_path, capsys):
+    """use_of at small nets on the flow-feature training bank: a warm start
+    and one composite epoch; the checkpoints hold {"arnet", "delta"}."""
+    cfg = small_kin_config("use_of")
+    agent = train_ar_policy.main(
+        ["--device", "cpu", "--cfg", "use_of", "--data", TRAIN_OF,
+         "--uhc-checkpoint", UHC_CKPT, "--init-steps", "1", "--full-steps",
+         "1", "--max-epochs", "1", "--out", str(tmp_path)], cfg=cfg)
+    out = capsys.readouterr().out
+    assert re.search(r"epoch 0  R [0-9.]+  bc [0-9.]+  ppo -?[0-9.]+", out)
+    assert agent.policy.policy_v == 2 and agent.policy.action_dim == 76
+    models = tmp_path / "statear" / "use_of" / "models"
+    for it in (0, 1):
+        ck = weights.read_checkpoint(str(models / f"iter_{it:04d}.p"))
+        assert sorted(ck["params"]) == ["arnet", "delta"] and ck["epoch"] == it
+    rec = json.loads((models / "ar_use_of_metrics.jsonl").read_text())
+    assert rec["ppo_grad_norm"] > 0 and rec["bc_nan_frac"] == 0
 
 
 @pytest.mark.parametrize("script", [train_ar_policy, exp_arnet])
