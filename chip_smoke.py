@@ -106,6 +106,24 @@ Phases, one line each with its seconds:
               data_bank/of_encoder.pkl) on a seeded uint8 clip of 64 x 64
               frames, card float32 against the CPU float64 port within
               1e-3; prints ms per frame
+ 13. uhc-modes the UHC controller's remaining engine modes: (a) train_uhc
+              --cfg on a YAML written to a temporary directory (uhc.yml's
+              values from the port's copy, with explicit residual forces on
+              every body with torques, meta-PD and local_rfc_explicit with
+              its w_cp/k_cp): 2 iterations at 1024 envs, the rollout cut to
+              8 control steps, on clips24, a 315-wide policy, launches
+              exactly 30/15/15/15 per control step, losses, rewards and
+              states finite, the policy moved, the checkpoint reloads
+              bit-identical; (b) one control step of 4 envs with explicit
+              residual forces and meta-PD, card float32 against CPU float64;
+              (c) the contacts-off control step, LTDL (launches exactly 30
+              ltdl_factor and 30 ltdl_solve[R=1], no pgs_solve) and dense
+              (30 chol_solve_only[R=1]), each card against CPU, the
+              movable objects' free fall card against CPU, and host ms per
+              control step at 1024 envs with contacts and without; (d)
+              eval_pose_all on phase 10's records written to a temporary
+              directory as eval_ar_policy writes them: its mean row equals
+              phase 10's within 1e-6
 Then a JSON line with every kernel's numbers, the card's nvidia-smi line,
 and as the last line {"ok": true, "device": {...}}. Any failure exits
 non-zero before that line; a watchdog ends the run past 10 minutes.
@@ -113,8 +131,10 @@ non-zero before that line; a watchdog ends the run past 10 minutes.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -167,6 +187,10 @@ OF_TRAIN_STEPS = 16                   # rollout depth, cut from use_of.yml's 125
 OF_TRAIN_EPOCHS = 2
 OF_FRAMES = 32                        # the flow clip, 64 x 64
 OF_ATOL = 1e-3                        # flow features, card f32 vs CPU f64
+# the uhc-modes phase
+MODES_ITERS = 2
+MODES_TIMED_STEPS = 3                 # host ms per control step, each mode
+POSE_ALL_ATOL = 1e-6                  # eval_pose_all's mean row vs phase 10's
 T0 = time.perf_counter()
 
 
@@ -436,9 +460,12 @@ def check_chol_kernels(dense_model, device) -> tuple[list[dict], list[str]]:
     return out, msgs
 
 
-def control_step_parity(card_model, cpu_model, bank_qpos) -> float:
-    """Max abs difference of qpos/qvel after one control step of 4 envs,
-    card model against CPU model, from seeded states near the clips."""
+def control_step_parity(card_model, cpu_model, bank_qpos,
+                        with_contacts: bool = True, obj=None) -> float:
+    """Max abs difference of qpos/qvel (and of the movable objects' state
+    given `obj` = (obj_qpos, obj_qvel)) after one control step of 4 envs,
+    card model against CPU model, from seeded states near the clips and a
+    seeded action of the models' width."""
     import torch
     from kinpoly_tpu_torch.physics import engine as eng
 
@@ -447,15 +474,127 @@ def control_step_parity(card_model, cpu_model, bank_qpos) -> float:
     qpos = q0.copy()
     qpos[:, 7:] += rng.uniform(-0.05, 0.05, (4, 69))
     qvel = rng.normal(0, 0.3, (4, 75))
-    action = rng.normal(0, 0.2, (4, 75))
+    action = rng.normal(0, 0.2, (4, card_model.action_dim))
     base_rot = np.asarray([0.7071, 0.7071, 0.0, 0.0], np.float32)
     outs = []
     for m in (card_model, cpu_model):
         t = lambda x: torch.as_tensor(x, dtype=m.dtype, device=m.device)
-        s = eng.control_step(m, eng.SimState(t(qpos), t(qvel)), t(action),
-                             t(q0[:, 7:]), t(base_rot))
+        state = eng.SimState(t(qpos), t(qvel))
+        if obj is not None:
+            state = state._replace(obj_qpos=t(obj[0]), obj_qvel=t(obj[1]))
+        s = eng.control_step(m, state, t(action), t(q0[:, 7:]), t(base_rot),
+                             with_contacts=with_contacts)
         outs.append([x.double().cpu() for x in s if x is not None])
     return max(float((a - b).abs().max()) for a, b in zip(*outs))
+
+
+def airborne_objects(n_obj: int, seed: int):
+    """(obj_qpos, obj_qvel) of 4 envs: every object in the air away from the
+    humanoid, tumbling (seeded velocities), for the contacts-off free
+    fall."""
+    rng = np.random.RandomState(seed)
+    obj = np.zeros((4, n_obj, 7))
+    obj[:, :, 0] = (np.arange(n_obj) + 1) * 3.0
+    obj[:, :, 2] = 2.0
+    q = rng.normal(0, 1, (4, n_obj, 4))
+    obj[:, :, 3:] = q / np.linalg.norm(q, axis=-1, keepdims=True)
+    return obj, rng.normal(0, 1.0, (4, n_obj, 6))
+
+
+# uhc.yml with explicit residual forces on every body with torques,
+# meta-PD and the local_rfc_explicit reward (a 315-wide action)
+EXPLICIT_YML = """\
+gamma: 0.95
+tau: 0.95
+policy_htype: relu
+policy_hsize: [512, 256]
+policy_lr: 5.0e-5
+value_htype: relu
+value_hsize: [512, 256]
+value_lr: 3.0e-4
+clip_epsilon: 0.2
+min_batch_size: 50000
+mini_batch_size: 32768
+num_optim_epoch: 10
+log_std: -2.3
+fix_std: true
+max_iter_num: 30000
+seed: 1
+save_model_interval: 100
+reward_id: local_rfc_explicit
+actor_type: mcp
+num_primitive: 8
+action_v: 1
+obs_v: 1
+reactive_v: 1
+reactive_rate: 0.3
+sampling_temp: 2
+env_term_body: body
+env_episode_len: 100000
+obs_coord: root
+obs_vel: full
+residual_force: true
+residual_force_scale: 100.0
+residual_force_lim: 100.0
+residual_force_mode: explicit
+residual_force_bodies: all
+residual_force_torque: true
+meta_pd: true
+base_rot: [0.7071, 0.7071, 0.0, 0.0]
+reward_weights:
+  w_p: 0.3
+  w_v: 0.1
+  w_e: 0.45
+  w_c: 0.1
+  w_vf: 0.05
+  k_p: 2.0
+  k_v: 0.005
+  k_e: 5.0
+  k_c: 100.0
+  k_vf: 1.0
+  w_cp: 0.1
+  k_cp: 10.0
+n_envs: 1024
+rollout_steps: 48
+"""
+
+
+def host_ms_per_step(model, bank_qpos, n_envs: int, steps: int,
+                     with_contacts: bool) -> tuple[float, int]:
+    """Host ms per control step of `n_envs` envs (states near the clips,
+    a seeded action), synchronised, after one warm-up step; and the aten
+    operations the warm-up step dispatched (kernel wrappers included)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from kinpoly_tpu_torch.physics import engine as eng
+
+    class CountOps(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    rng = np.random.RandomState(9)
+    idx = np.arange(n_envs) % bank_qpos.shape[0]
+    t = lambda x: torch.as_tensor(x, dtype=model.dtype, device=model.device)
+    q0 = bank_qpos[idx, 0].double().cpu().numpy()
+    state = eng.SimState(t(q0), t(rng.normal(0, 0.3, (n_envs, 75))))
+    action = t(rng.normal(0, 0.2, (n_envs, model.action_dim)))
+    base_rot = t(np.asarray([0.7071, 0.7071, 0.0, 0.0], np.float32))
+
+    def step(s):
+        return eng.control_step(model, s, action, t(q0[:, 7:]), base_rot,
+                                with_contacts=with_contacts)
+
+    with CountOps() as ops:
+        step(state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state = step(state)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3, ops.n
 
 
 def env_step_parity(cfg_name: str, card_model, cpu_model, takes: dict):
@@ -615,13 +754,13 @@ def ar_step_parity(takes, device, here: str, box_on_the_hand: bool,
 
 
 def run_training(device, iters: int, takes: dict, hard_states=None,
-                 **model_kw) -> dict:
-    """`iters` iterations of train_uhc's loop for the uhc.yml agent at
-    TRAIN_ENVS envs and TRAIN_STEPS control steps over `takes`, through the
-    kernels of the configuration that `model_kw` selects; launch counters
-    set to 0 just before and read just after; the metrics stream written
-    to a temporary directory and read back. Returns the launches, the
-    timings, the stream's records and the agent."""
+                 cfg=None, **model_kw) -> dict:
+    """`iters` iterations of train_uhc's loop for the agent of `cfg`
+    (uhc.yml by default) at TRAIN_ENVS envs and TRAIN_STEPS control steps
+    over `takes`, through the kernels of the configuration that `model_kw`
+    selects; launch counters set to 0 just before and read just after; the
+    metrics stream written to a temporary directory and read back. Returns
+    the launches, the timings, the stream's records and the agent."""
     import torch
     from kinpoly_tpu_torch import native
     from kinpoly_tpu_torch.config.defaults import UHCConfig
@@ -630,7 +769,7 @@ def run_training(device, iters: int, takes: dict, hard_states=None,
     from kinpoly_tpu_torch.utils.logger import create_logger
     from kinpoly_tpu_torch.utils.metrics_log import MetricsLogger
 
-    cfg = UHCConfig()
+    cfg = cfg or UHCConfig()
     agent = build_trainer(takes, cfg, TRAIN_ENVS, TRAIN_STEPS, hard_states,
                           device=device, **model_kw)
     start = [p.detach().clone() for p in agent.policy.parameters()]
@@ -668,7 +807,8 @@ def run_training(device, iters: int, takes: dict, hard_states=None,
                  (carry.obs, carry.env_state.sim.qpos, carry.env_state.sim.qvel))
     for m in metrics:
         vals = [m["policy_loss"], m["value_loss"], m["reward_mean"],
-                m["fail_frac"]] + [m[f"reward_components/{i}"] for i in range(5)]
+                m["fail_frac"]] + [m[k] for k in m
+                                   if k.startswith("reward_components/")]
         finite = finite and bool(np.isfinite(vals).all())
     moved = max(float((p.detach() - s).abs().max())
                 for p, s in zip(agent.policy.parameters(), start))
@@ -1288,6 +1428,7 @@ def main() -> None:
         traj.res_qpos, traj.obj_qpos, traj.actions, traj.rewards))
     rows, records = ear.take_rows(ev, traj)
     summ = ear.summary(rows, records)
+    ar_eval_rows, ar_eval_records = rows, records   # phase 13 (d) reads them
     ar_ms = run_s / AR_STEPS * 1e3
     say("ar", f"{ev.n_takes} wild takes of {WILD} (longest "
         f"{ev.batch.qpos.shape[1]} frames), context {ctx_s:.2f} s; {AR_STEPS} "
@@ -1534,6 +1675,134 @@ def main() -> None:
         fail(f"flow features of shape {tuple(feats.shape)} or non-finite")
     if not of_err < OF_ATOL:
         fail(f"flow features card vs CPU max abs err {of_err:.3g}")
+
+    # 13. uhc-modes: explicit residual forces, meta-PD, contacts off ------------
+    tp = time.perf_counter()
+    from kinpoly_tpu_torch.config.defaults import UHCConfig
+    from kinpoly_tpu_torch.scripts import eval_pose_all
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "uhc_explicit.yml")
+        with open(path, "w") as f:
+            f.write(EXPLICIT_YML)
+        ex_cfg = UHCConfig.load(path)
+    uhc = UHCConfig.named("uhc")
+    if ex_cfg != dataclasses.replace(
+            uhc, name="uhc_explicit", residual_force_mode="explicit",
+            residual_force_bodies="all", residual_force_torque=True,
+            meta_pd=True, reward_id="local_rfc_explicit",
+            reward_weights=dict(uhc.reward_weights, w_cp=0.1, k_cp=10.0)):
+        fail(f"the explicit YAML reads back as {ex_cfg}")
+    tr = run_training(device, MODES_ITERS, takes, cfg=ex_cfg)
+    n = tr["steps"]
+    expect = {"ltdl_factor": 30 * n, "ltdl_solve[R=1]": 15 * n,
+              "ltdl_solve[R=55]": 15 * n, "pgs_solve": 15 * n}
+    width = tr["agent"].env.action_dim
+    same = checkpoint_round_trip(tr["agent"])
+    m = tr["metrics"][-1]
+    n_comp = sum(k.startswith("reward_components/") for k in m)
+    say("uhc-modes", f"(a) train_uhc --cfg {ex_cfg.name}.yml (explicit "
+        f"residual forces on {len(tr['agent'].env.model.ctrl.vf_bodies)} "
+        f"bodies with torques, meta-PD, {ex_cfg.reward_id}): {width}-wide "
+        f"policy, {TRAIN_ENVS} envs x {TRAIN_STEPS} steps x {MODES_ITERS} "
+        f"iterations on {CLIPS24}: {tr['s_per_iter']:.2f} s per iteration, "
+        f"rollout {tr['ms_per_step']:.1f} ms per control step (implicit "
+        f"{ltdl_ms:.1f}), PPO update {tr['ppo_ms']:.1f} ms; last iteration "
+        f"reward {m['reward_mean']:.4f} ({n_comp} components) policy_loss "
+        f"{m['policy_loss']:.4g} value_loss {m['value_loss']:.4g}; launches "
+        f"{tr['launches']} (expected {expect}); finite {tr['finite']}; "
+        f"policy moved {tr['moved']:.3g}; checkpoint round trip identical "
+        f"{same}", tp)
+    if width != 315 or n_comp != 7:
+        fail(f"explicit + meta-PD policy {width} wide with {n_comp} reward "
+             f"components, expected 315 and 7")
+    if tr["launches"] != expect:
+        fail(f"explicit + meta-PD training launches {tr['launches']} != {expect}")
+    if [m["step"] for m in tr["metrics"]] != list(range(MODES_ITERS)):
+        fail("explicit + meta-PD metrics stream not one line per iteration")
+    if not tr["finite"]:
+        fail("non-finite loss, reward or state in explicit + meta-PD training")
+    if not tr["moved"] > 0:
+        fail("the explicit + meta-PD policy did not change in training")
+    if not same:
+        fail("a reloaded explicit + meta-PD checkpoint gives other outputs")
+    for k in kernels:
+        k["launches_by_path"]["uhc_modes_train"] = tr["launches"].get(k["name"], 0)
+    del tr
+
+    tp = time.perf_counter()
+    ex_card = eng.build_model(spec, ex_cfg.control_params(spec), device=device)
+    ex_cpu = eng.build_model(spec, ex_cfg.control_params(spec), device="cpu",
+                             dtype=torch.float64)
+    xerr = control_step_parity(ex_card, ex_cpu, bank_qpos)
+    say("uhc-modes", f"(b) one control step, 4 envs, explicit residual "
+        f"forces and meta-PD ({ex_card.action_dim}-wide action), card f32 "
+        f"vs CPU f64: max abs err {xerr:.3g} (tol {PARITY_ATOL})", tp)
+    if not xerr < PARITY_ATOL:
+        fail(f"explicit + meta-PD card vs CPU parity error {xerr:.3g}")
+    del ex_card, ex_cpu
+
+    tp = time.perf_counter()
+    mov_card = eng.build_model(spec_o, uhc_control_params(spec_o), device=device,
+                               with_objects=True, movable_objects=True)
+    mov_cpu = eng.build_model(spec_o, uhc_control_params(spec_o), device="cpu",
+                              dtype=torch.float64, with_objects=True,
+                              movable_objects=True)
+    off_ltdl = {"ltdl_factor": 30, "ltdl_solve[R=1]": 30}
+    off = {}
+    for mode, card_m, cpu_m, obj, want in (
+            ("ltdl", model, cpu_model, None, off_ltdl),
+            ("dense", dense_model, cpu_dense, None, {"chol_solve_only[R=1]": 30}),
+            ("ltdl, movable objects", mov_card, mov_cpu,
+             airborne_objects(len(spec_o.objects), 10), off_ltdl)):
+        native.LAUNCHES.clear()
+        err = control_step_parity(card_m, cpu_m, bank_qpos, with_contacts=False,
+                                  obj=obj)
+        torch.cuda.synchronize()
+        off[mode] = (err, dict(native.LAUNCHES), want)
+    ms_on, ops_on = host_ms_per_step(model, bank_qpos, TRAIN_ENVS,
+                                     MODES_TIMED_STEPS, True)
+    ms_off, ops_off = host_ms_per_step(model, bank_qpos, TRAIN_ENVS,
+                                       MODES_TIMED_STEPS, False)
+    say("uhc-modes", "(c) contacts off, one control step of 4 envs card f32 "
+        "vs CPU f64: " + "; ".join(
+            f"{k}: max abs err {e:.3g}, launches {got} (expected {w})"
+            for k, (e, got, w) in off.items())
+        + f" (tol {PARITY_ATOL}); host time per control step at {TRAIN_ENVS} "
+        f"envs (LTDL): with contacts {ms_on:.1f} ms ({ops_on} aten ops "
+        f"dispatched), without {ms_off:.1f} ms ({ops_off})", tp)
+    for k, (e, got, w) in off.items():
+        if got != w:
+            fail(f"contacts-off ({k}) launches {got} != {w}")
+        if not e < PARITY_ATOL:
+            fail(f"contacts-off ({k}) card vs CPU parity error {e:.3g}")
+    for k in kernels:
+        for path, key in (("uhc_contacts_off", "ltdl"),
+                          ("uhc_contacts_off_dense", "dense")):
+            k["launches_by_path"][path] = off[key][1].get(k["name"], 0)
+    del mov_card, mov_cpu
+
+    tp = time.perf_counter()
+    kin_cfg = KinPolyConfig.named("kin_poly")
+    with tempfile.TemporaryDirectory() as tmp:
+        res_dir = os.path.join(kin_cfg.out_dir(tmp), "results")
+        os.makedirs(res_dir)
+        for i, rec in enumerate(ar_eval_records):
+            with open(os.path.join(res_dir, f"{AR_ITER:04d}_wild_take{i}"
+                                   f"_coverage_full.pkl"), "wb") as f:
+                pickle.dump(rec, f)
+        pose_mean = eval_pose_all.main(["--iter", str(AR_ITER), "--wild",
+                                        "--out", tmp, "--device", "cuda"])
+    ar_mean = ear.summary(ar_eval_rows, ar_eval_records)["mean"]
+    if pose_mean is None:
+        fail("eval_pose_all found no records")
+    pose_err = max(abs(v - ar_mean[k]) for k, v in pose_mean.items())
+    say("uhc-modes", f"(d) eval_pose_all on phase 10's {len(ar_eval_records)} "
+        f"records: mean row " + " ".join(f"{k}:{v:.3f}" for k, v in
+                                         pose_mean.items())
+        + f"; max abs difference from phase 10's {pose_err:.3g} (tol "
+        f"{POSE_ALL_ATOL})", tp)
+    if not pose_err <= POSE_ALL_ATOL:
+        fail(f"eval_pose_all's mean row differs from phase 10's by {pose_err:.3g}")
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)

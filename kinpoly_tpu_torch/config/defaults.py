@@ -1,23 +1,26 @@
 """UHC configuration: the repo's UHC configs (``kinpoly_tpu/config/yaml/
-uhc.yml`` and ``uhc_quatv2.yml``) as a dataclass with the adaptive schedules
-and the training config derived from them (port of
-``kinpoly_tpu/config/config.py`` ``UHCConfig``), the kinematic policy's
-(``kin_poly.yml``, ``KinPolyConfig``), and the per-joint stable-PD table
-(port of ``kinpoly_tpu/config/defaults.py``).
+uhc.yml`` and ``uhc_quatv2.yml``) or any UHC YAML as a dataclass with the
+adaptive schedules and the control, env and training configs derived from
+them (port of ``kinpoly_tpu/config/config.py`` ``UHCConfig``), the
+kinematic policy's (``kin_poly.yml``, ``KinPolyConfig``), and the
+per-joint stable-PD table (port of ``kinpoly_tpu/config/defaults.py``).
 
 The defaults below are copied from uhc.yml and kin_poly.yml, and
 ``NAMED_CONFIGS``/``NAMED_KIN_CONFIGS`` hold what each other config
-changes (the port reads no YAML); a test holds each against its YAML as
-the JAX package parses it.
+changes (the port reads no YAML of the repo); a test holds each against
+its YAML as the JAX package parses it. ``UHCConfig.load(cfg_id)`` takes a
+name of ``NAMED_CONFIGS`` or a path to a YAML, which ``config/config.py``
+reads.
 """
 
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, fields
 
 import numpy as np
 
+from kinpoly_tpu_torch.config.config import load_yaml
 from kinpoly_tpu_torch.physics.engine import ControlParams
 
 # (k_p, k_d, torque limit) per 3-hinge body, identical for its z/y/x hinges
@@ -51,9 +54,14 @@ _BODY_PD = {
 BODY_DIFF_WEIGHTS = {"L_Toe": 0.0, "R_Toe": 0.0, "L_Hand": 0.0, "R_Hand": 0.0}
 
 
-def uhc_control_params(spec, rfc_scale: float = 100.0,
-                       rfc_lim: float = float("inf")) -> ControlParams:
-    """ControlParams from the PD table (implicit RFC, action_v 1)."""
+def uhc_control_params(spec, rfc_scale: float = 100.0, meta_pd: bool = False,
+                       rfc_mode: str = "implicit",
+                       rfc_lim: float = float("inf"),
+                       vf_bodies: str | tuple = "all",
+                       residual_force_torque: bool = True) -> ControlParams:
+    """ControlParams from the PD table (action_v 1). Explicit residual
+    forces act on `vf_bodies`: "all" (every body, in spec order) or body
+    names."""
     jkp, jkd, tl = [], [], []
     for name in spec.body_names[1:]:
         kp, kd, lim = _BODY_PD[name]
@@ -61,10 +69,16 @@ def uhc_control_params(spec, rfc_scale: float = 100.0,
         jkd += [kd] * 3
         tl += [lim] * 3
     n = len(jkp)
+    vf_idx = ()
+    if rfc_mode == "explicit":
+        vf_idx = (tuple(range(len(spec.body_names))) if vf_bodies == "all"
+                  else tuple(spec.body_index(b) for b in vf_bodies))
     return ControlParams(jkp=np.asarray(jkp), jkd=np.asarray(jkd),
                          a_ref=np.zeros(n), a_scale=np.ones(n),
                          torque_lim=np.asarray(tl), rfc_scale=rfc_scale,
-                         rfc_lim=rfc_lim, action_v=1)
+                         rfc_lim=rfc_lim, action_v=1, meta_pd=meta_pd,
+                         rfc_mode=rfc_mode, vf_bodies=vf_idx,
+                         residual_force_torque=residual_force_torque)
 
 
 def body_diff_weights(spec) -> np.ndarray:
@@ -86,12 +100,22 @@ _REWARD_WEIGHTS = dict(w_p=0.3, w_v=0.1, w_e=0.45, w_c=0.1, w_vf=0.05,
 # what each named config changes from uhc.yml
 NAMED_CONFIGS = {"uhc": {}, "uhc_quatv2": {"reward_id": "quat_v2"}}
 
+# the reward weights the env config takes from a YAML's reward_weights
+# (the JAX env_config's list); others are ignored, as there
+_ENV_REWARD_KEYS = ("w_p", "w_v", "w_e", "w_c", "w_vf", "k_p", "k_v", "k_e",
+                    "k_c", "k_vf", "w_rp", "w_rv", "k_rh", "k_rq", "k_rl",
+                    "k_ra", "w_cp", "k_cp", "w_wp", "w_j", "k_wp", "k_j")
+
 
 @dataclass(frozen=True)
 class UHCConfig:
     """A UHC training configuration, field for field, and its ``name``
-    (the YAML's; it names the output directory). ``UHCConfig.named(name)``
-    gives one of ``NAMED_CONFIGS``; ``UHCConfig()`` is uhc.yml."""
+    (the YAML's basename; it names the output directory).
+    ``UHCConfig.named(name)`` gives one of ``NAMED_CONFIGS``,
+    ``UHCConfig.from_yaml(path)`` reads a YAML, ``UHCConfig.load`` takes
+    either; ``UHCConfig()`` is uhc.yml. Fields uhc.yml does not set keep
+    the JAX config's defaults; ``adp_log_std_cp``/``adp_policy_lr_cp``
+    None mean the one-point schedule at ``log_std``/``policy_lr``."""
     name: str = "uhc"
     gamma: float = 0.95
     tau: float = 0.95
@@ -130,6 +154,17 @@ class UHCConfig:
     reward_weights: dict = field(default_factory=lambda: dict(_REWARD_WEIGHTS))
     n_envs: int = 1024
     rollout_steps: int = 48
+    # not set by uhc.yml: the JAX config's defaults
+    residual_force_bodies: str | tuple = "all"
+    residual_force_torque: bool = True
+    meta_pd: bool = False
+    env_expert_trail_steps: int = 0
+    env_init_noise: float = 0.0
+    # adaptive schedules (reference copycat_config.py:149-166)
+    adp_iter_cp: tuple = (0,)
+    adp_noise_rate_cp: tuple = (1.0,)
+    adp_log_std_cp: tuple | None = None
+    adp_policy_lr_cp: tuple | None = None
 
     @classmethod
     def named(cls, name: str) -> "UHCConfig":
@@ -137,6 +172,27 @@ class UHCConfig:
             raise ValueError(f"unknown UHC config {name!r}; available: "
                              f"{sorted(NAMED_CONFIGS)}")
         return cls(name=name, **NAMED_CONFIGS[name])
+
+    @classmethod
+    def from_yaml(cls, path: str) -> "UHCConfig":
+        """The config of a YAML file, named after its basename. Keys that
+        are no field are ignored, as the JAX config ignores them; lists
+        become tuples."""
+        d = load_yaml(path)
+        kw = {}
+        for f in fields(cls):
+            if f.name == "name" or f.name not in d:
+                continue
+            v = d[f.name]
+            kw[f.name] = (tuple(v) if isinstance(v, list)
+                          else dict(v) if isinstance(v, dict) else v)
+        return cls(name=os.path.splitext(os.path.basename(path))[0], **kw)
+
+    @classmethod
+    def load(cls, cfg_id: str) -> "UHCConfig":
+        """A YAML path (as the JAX scripts' ``--cfg``, a path wins) or a
+        name of ``NAMED_CONFIGS``."""
+        return cls.from_yaml(cfg_id) if os.path.exists(cfg_id) else cls.named(cfg_id)
 
     def out_dir(self, out_root: str = "results") -> str:
         """The run's directory (``log.txt``)."""
@@ -147,49 +203,48 @@ class UHCConfig:
         metrics stream."""
         return os.path.join(self.out_dir(out_root), "models")
 
-    # adaptive schedules (reference copycat_config.py:149-166): uhc.yml sets
-    # none, so each is the one-point schedule the JAX config defaults to
-    @property
-    def adp_iter_cp(self) -> np.ndarray:
-        return np.asarray([0])
-
-    @property
-    def adp_noise_rate_cp(self) -> np.ndarray:
-        return np.asarray([1.0])
-
-    @property
-    def adp_log_std_cp(self) -> np.ndarray:
-        return np.asarray([self.log_std])
-
-    @property
-    def adp_policy_lr_cp(self) -> np.ndarray:
-        return np.asarray([self.policy_lr])
-
     def adaptive_params(self, i_iter: int) -> dict:
         """Linear interpolation between the schedules' checkpoints
         (copycat_config.update_adaptive_params)."""
-        cp = self.adp_iter_cp
+        cp = np.asarray(self.adp_iter_cp)
         idx = int(np.searchsorted(cp, i_iter, side="right") - 1)
         nxt = min(idx + 1, len(cp) - 1)
         t = 0.0 if cp[nxt] == cp[idx] else (i_iter - cp[idx]) / (cp[nxt] - cp[idx])
 
-        def lerp(arr):
+        def lerp(sched, default):
+            arr = np.asarray(default if sched is None else sched)
             return float(arr[idx] * (1 - t) + arr[nxt] * t)
 
-        return dict(noise_rate=lerp(self.adp_noise_rate_cp),
-                    log_std=lerp(self.adp_log_std_cp),
-                    policy_lr=lerp(self.adp_policy_lr_cp))
+        return dict(noise_rate=lerp(self.adp_noise_rate_cp, None),
+                    log_std=lerp(self.adp_log_std_cp, [self.log_std]),
+                    policy_lr=lerp(self.adp_policy_lr_cp, [self.policy_lr]))
+
+    def control_params(self, spec) -> ControlParams:
+        """The engine's control parameters with every residual-force knob
+        of the config: scale (0 without ``residual_force``), the limit,
+        mode, bodies and torque, and meta-PD (the JAX trainer's)."""
+        vb = self.residual_force_bodies
+        return uhc_control_params(
+            spec,
+            rfc_scale=self.residual_force_scale if self.residual_force else 0.0,
+            meta_pd=self.meta_pd, rfc_mode=self.residual_force_mode,
+            rfc_lim=self.residual_force_lim,
+            vf_bodies=vb if vb == "all" else tuple(vb),
+            residual_force_torque=self.residual_force_torque)
 
     def env_config(self):
         from kinpoly_tpu_torch.envs.humanoid_im import EnvConfig
 
+        rw = self.reward_weights
         return EnvConfig(
             obs_v=self.obs_v, obs_coord=self.obs_coord, obs_vel=self.obs_vel,
             env_term_body=self.env_term_body,
             env_episode_len=self.env_episode_len,
+            env_expert_trail_steps=self.env_expert_trail_steps,
+            env_init_noise=self.env_init_noise,
             reactive_v=self.reactive_v, reactive_rate=self.reactive_rate,
             base_rot=self.base_rot, reward_id=self.reward_id,
-            **self.reward_weights)
+            **{k: rw[k] for k in _ENV_REWARD_KEYS if k in rw})
 
     def train_config(self):
         """The trainer's config (the fields the JAX ``train_config`` sets;

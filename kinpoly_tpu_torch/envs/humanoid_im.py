@@ -1,8 +1,9 @@
 """UHC motion-imitation environment (port of
 ``kinpoly_tpu/envs/humanoid_im.py``): observations v1 and v2, every UHC
-reward but the explicit-RFC ones (``rl/rewards.py``), body-distance, head
-and root-height termination, the non-finite guard, the deterministic
-(evaluation) and training resets, and the fail-safe, over a batch of envs.
+reward (``rl/rewards.py``), body-distance, head and root-height
+termination, the non-finite guard, the deterministic (evaluation) and
+training resets, and the fail-safe, over a batch of envs. The action is
+the model's ``action_dim`` wide.
 
 Every state tensor has a leading env dim N. The training reset draws from
 the caller's ``torch.Generator``: joint noise (``env_init_noise``), and in
@@ -61,6 +62,9 @@ class EnvConfig:
     k_rq: float = 300.0
     k_rl: float = 5.0
     k_ra: float = 0.5
+    # *_explicit contact-point regularizer
+    w_cp: float = 0.0
+    k_cp: float = 1.0
     # v2/v3 world-quat/jpos terms
     w_wp: float = 0.4
     w_j: float = 100.0
@@ -153,7 +157,7 @@ class StepInfo(NamedTuple):
     fail: torch.Tensor
     end: torch.Tensor
     percent: torch.Tensor
-    reward_info: torch.Tensor   # (N, 5) reward components
+    reward_info: torch.Tensor   # (N, C) reward components
 
 
 def select(mask: torch.Tensor, a, b):
@@ -202,7 +206,7 @@ class HumanoidImEnv:
         self.b_diffw = torch.as_tensor(b_diff_weights_pose(spec), dtype=dtype,
                                        device=device)
         self.vf_dim = model.ctrl.vf_dim
-        self.action_dim = 69 + self.vf_dim
+        self.action_dim = model.action_dim
         self.reward_fn = rwlib.get_uhc_reward(cfg.reward_id)
         self.reward_weights = {f.name: getattr(cfg, f.name) for f in fields(cfg)}
 
@@ -269,6 +273,12 @@ class HumanoidImEnv:
                 e_qpos=e.qpos, e_rq_rmh=e.rq_rmh, e_rlinv=e.rlinv,
                 e_rlinv_local=e.rlinv_local, e_rangv=e.rangv,
                 e_ee_pos=e.ee_pos)
+        if self.cfg.reward_id.endswith("_explicit"):
+            # per-body blocks of the explicit residual forces: the contact
+            # point, then the force (and torque)
+            c = self.model.ctrl
+            v = kw["vf"].reshape(lead + (len(c.vf_bodies), c.body_vf_dim))
+            kw.update(vf_cp=v[..., :3], vf_force=v[..., 3:])
         return self.reward_fn(rwlib.RewardInputs(**kw), self.reward_weights)
 
     def calc_body_diff(self, state: EnvState, fk_res: fklib.FKResult):

@@ -15,7 +15,11 @@ and the per-action success rules (``action_success``): push moves the box
 over 0.1 m; sit touches the chair with the hips or the lower spine; avoid
 keeps bodies 0-11 off the Can and ends within 0.5 m of the ground-truth
 head; step touches the step with a foot and raises the pelvis over 0.1 m;
-a take that needed a fail-safe teleport fails.
+a take that needed a fail-safe teleport fails. Contacts are tested at the
+caller's vertices, or at ``select_contact_vertices(spec, default_k=4)``
+(no extra foot candidates), as in the JAX package. ``success_push``,
+``success_avoid``, ``success_sit`` and ``success_step`` are the rules'
+building blocks on precomputed per-frame signals.
 """
 
 from __future__ import annotations
@@ -140,6 +144,42 @@ def evaluate_pair(model, qpos_pred: torch.Tensor, qpos_gt: torch.Tensor,
     )
 
 
+def success_push(obj_pose_seq: torch.Tensor, thresh: float = 0.1) -> torch.Tensor:
+    """The box moved over `thresh` m between the first and the last pose
+    of (T, 7)."""
+    return torch.linalg.norm(obj_pose_seq[-1, :3] - obj_pose_seq[0, :3],
+                             dim=-1) > thresh
+
+
+def success_avoid(head_pose_pred: torch.Tensor, head_pose_gt: torch.Tensor,
+                  min_step_dist, thresh: float = 0.5) -> torch.Tensor:
+    """No contact with the obstacle (its minimum distance over the take
+    above 0) and the last head position within `thresh` m of the ground
+    truth's."""
+    drift = torch.linalg.norm(head_pose_pred[-1, :3] - head_pose_gt[-1, :3],
+                              dim=-1)
+    return (torch.as_tensor(min_step_dist) > 0.0) & (drift < thresh)
+
+
+def success_sit(hip_chair_contact_frames: torch.Tensor,
+                min_contig: int = 5) -> torch.Tensor:
+    """At least `min_contig` consecutive frames of hip-chair contact: the
+    longest run of True, from the cumulative count less its value at the
+    last False frame."""
+    x = hip_chair_contact_frames.to(torch.int64)
+    c = torch.cumsum(x, dim=0)
+    runs = c - torch.cummax(torch.where(x == 0, c, torch.zeros_like(c)),
+                            dim=0).values
+    return runs.max() >= min_contig
+
+
+def success_step(foot_on_step_frames: torch.Tensor, pelvis_z: torch.Tensor,
+                 base_z, raise_thresh: float = 0.1) -> torch.Tensor:
+    """A foot on the step in some frame and the pelvis raised over
+    `raise_thresh` m above `base_z` in some frame."""
+    return foot_on_step_frames.any() & ((pelvis_z.max() - base_z) > raise_thresh)
+
+
 # the success rules' bodies (spec body order): sit uses Pelvis, the hips,
 # Torso and Spine against the chair; avoid bodies 0-11 against the Can;
 # step the ankles and toes against the step
@@ -179,11 +219,16 @@ def _contact_frames(model, qpos_seq, obj_seq, bodies, obj_idx, verts,
 
 def action_success(model, qpos_pred: torch.Tensor, obj_seq: torch.Tensor,
                    action: str, head_pose_pred=None, head_pose_gt=None,
-                   fail_safe_used: bool = False) -> bool:
+                   fail_safe_used: bool = False, verts=None,
+                   vert_body=None) -> bool:
     """The per-action success of one take. qpos_pred (T, 76); obj_seq
     (T, n_obj, 7) simulated object poses, or (n_obj, 7) held for the take;
-    contacts are tested at the model's candidate vertices."""
-    verts, vert_body = model.cand_verts, model.cand_body
+    contacts are tested at `verts` (V, 3) on bodies `vert_body` (V,), by
+    default ``select_contact_vertices(spec, default_k=4)``."""
+    if verts is None:
+        verts, vert_body = ct.select_contact_vertices(model.spec, default_k=4)
+    verts = torch.as_tensor(verts, dtype=qpos_pred.dtype, device=qpos_pred.device)
+    vert_body = torch.as_tensor(vert_body, device=qpos_pred.device)
     if obj_seq.dim() == 2:
         obj_seq = obj_seq.expand((qpos_pred.shape[0],) + obj_seq.shape)
     obj_of = dict(zip(ACTIONS, (int(i) for i in

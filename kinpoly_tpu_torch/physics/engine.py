@@ -1,7 +1,8 @@
 """The batched humanoid simulation engine (port of
-``kinpoly_tpu/physics/engine.py``): stable-PD control, implicit residual
-force control, soft floor, joint-limit and object contacts, semi-implicit
-Euler, and the scene objects as static geometry or as free bodies.
+``kinpoly_tpu/physics/engine.py``): stable-PD control (with per-substep
+meta-PD gains), implicit or explicit residual force control, soft floor,
+joint-limit and object contacts, semi-implicit Euler, and the scene objects
+as static geometry or as free bodies.
 
 Per substep: FK and the motion subspaces, RNEA bias force, the two SPD
 systems M + Kd dt and M, the stable-PD solve (one right-hand side), planned
@@ -28,8 +29,16 @@ solve (``split_of``), and ``compact_k = (K_h, K_o)`` gathers the deepest
 active blocks of each pool before the mass solve (the AR scripts' (16, 8):
 K2 at 1 + 3 x 16 columns, K3 over 24 blocks).
 
-Not ported here (opt-in in the JAX package): meta-PD gains, explicit RFC
-and the contacts-off substep.
+Residual forces (``ControlParams.rfc_mode``): "implicit" is one 6-d root
+wrench, its linear part turned by the heading and clipped at ``rfc_lim``;
+"explicit" is a wrench per body of ``vf_bodies`` (a contact point, a force
+and, with ``residual_force_torque``, a torque, all in the body frame,
+scaled by ``rfc_scale`` and not clipped), mapped to generalized forces.
+With ``meta_pd`` the action carries 2 x ``n_substeps`` more entries that
+scale every joint's k_p and k_d per substep. ``control_step(...,
+with_contacts=False)`` drops the contact plan and solve: each substep then
+solves M qacc = tau - C at one right-hand side, and movable objects fall as
+free bodies.
 """
 
 from __future__ import annotations
@@ -60,7 +69,8 @@ class SimState(NamedTuple):
 
 @dataclass(frozen=True)
 class ControlParams:
-    """Per-joint stable-PD table (uhc.yml joint_params) and implicit RFC."""
+    """Per-joint stable-PD table (uhc.yml joint_params), residual forces
+    and meta-PD."""
     jkp: np.ndarray          # (69,)
     jkd: np.ndarray          # (69,)
     a_ref: np.ndarray        # (69,) base pose for action_v = 0
@@ -69,10 +79,22 @@ class ControlParams:
     rfc_scale: float = 100.0
     rfc_lim: float = float("inf")
     action_v: int = 1
+    meta_pd: bool = False
+    # "implicit": a 6-d root wrench; "explicit": per-body (contact point,
+    # force[, torque]) wrenches of the bodies `vf_bodies` (indices)
+    rfc_mode: str = "implicit"
+    vf_bodies: tuple = ()
+    residual_force_torque: bool = True
+
+    @property
+    def body_vf_dim(self) -> int:
+        return 6 + 3 * int(self.residual_force_torque)
 
     @property
     def vf_dim(self) -> int:
-        return 6
+        if self.rfc_mode == "implicit":
+            return 6
+        return self.body_vf_dim * len(self.vf_bodies)
 
 
 class ControlTensors(NamedTuple):
@@ -81,6 +103,7 @@ class ControlTensors(NamedTuple):
     a_ref: torch.Tensor
     a_scale: torch.Tensor
     torque_lim: torch.Tensor
+    vf_bodies: torch.Tensor   # (n_vb,) int64, the explicit wrenches' bodies
 
 
 @dataclass(frozen=True)
@@ -145,6 +168,13 @@ class PhysicsModel:
         return self.spec.timestep * self.n_substeps
 
     @property
+    def action_dim(self) -> int:
+        """69 joint targets, ``ctrl.vf_dim`` residual forces and, with
+        meta-PD, 2 x ``n_substeps`` gain scales."""
+        return 69 + self.ctrl.vf_dim + (
+            2 * self.n_substeps if self.ctrl.meta_pd else 0)
+
+    @property
     def device(self) -> torch.device:
         return self.cand_verts.device
 
@@ -189,7 +219,9 @@ def build_model(spec: HumanoidSpec, ctrl: ControlParams, device=None,
         topo=ltdl.build_topo(tables.dof_parent, dtype, device),
         ctrl=ctrl,
         ctrl_t=ControlTensors(t(ctrl.jkp), t(ctrl.jkd), t(ctrl.a_ref),
-                              t(ctrl.a_scale), t(ctrl.torque_lim)),
+                              t(ctrl.a_scale), t(ctrl.torque_lim),
+                              torch.as_tensor(ctrl.vf_bodies, dtype=torch.int64,
+                                              device=device)),
         cand_verts=t(cand_verts),
         cand_body=torch.as_tensor(cand_body, device=device),
         jnt_lo=t(spec.jnt_range[:, 0]), jnt_hi=t(spec.jnt_range[:, 1]),
@@ -198,11 +230,13 @@ def build_model(spec: HumanoidSpec, ctrl: ControlParams, device=None,
 
 
 def compute_torque(model: PhysicsModel, qpos, qvel, ctrl_joint, base_pos,
-                   C, solve_A):
+                   C, solve_A, jkp=None, jkd=None):
     """Stable-PD torque for one substep; `solve_A(rhs)` solves
-    (M + K_d dt) x = rhs."""
+    (M + K_d dt) x = rhs. `jkp`/`jkd` (69,) or (..., 69): this substep's
+    gains (default: the model's table)."""
     dt = model.dt
-    jkp, jkd = model.ctrl_t.jkp, model.ctrl_t.jkd
+    jkp = model.ctrl_t.jkp if jkp is None else jkp
+    jkd = model.ctrl_t.jkd if jkd is None else jkd
     base_pos = tmath.normalize_angle_diff(base_pos, qpos[..., 7:])
     target_pos = base_pos + ctrl_joint
     zeros6 = torch.zeros(qpos.shape[:-1] + (6,), dtype=qpos.dtype,
@@ -217,6 +251,27 @@ def compute_torque(model: PhysicsModel, qpos, qvel, ctrl_joint, base_pos,
     torque = -jkp * qpos_err[..., 6:] - jkd * qvel_err[..., 6:]
     lim = model.ctrl_t.torque_lim
     return torch.clamp(torque, -lim, lim)
+
+
+def rfc_explicit(model: PhysicsModel, ks: dyn.KinState, vf: torch.Tensor):
+    """Generalized forces (..., nv) of the per-body residual wrenches. Per
+    body of ``vf_bodies``, `vf` holds a contact point, a force and (with
+    ``residual_force_torque``) a torque, all in the body frame; force and
+    torque are turned to world and scaled by ``rfc_scale``. A force f at
+    world point p with torque t on body b gives every ancestor dof j of b
+    Q_j = phi_j^omega . (t + p x f) + phi_j^v . f."""
+    c = model.ctrl
+    vb = model.ctrl_t.vf_bodies
+    v = vf.reshape(vf.shape[:-1] + (vb.shape[0], c.body_vf_dim))
+    xquat = ks.fk_res.xquat[..., vb, :]
+    p = ks.fk_res.xpos[..., vb, :] + tmath.quat_rot_vec(xquat, v[..., 0:3])
+    f = tmath.quat_rot_vec(xquat, v[..., 3:6]) * c.rfc_scale
+    t = (tmath.quat_rot_vec(xquat, v[..., 6:9]) * c.rfc_scale
+         if c.residual_force_torque else torch.zeros_like(f))
+    n0 = t + torch.linalg.cross(p, f)
+    anc = model.tables.anc_dof_body[:, vb].T                  # (n_vb, nv)
+    return (torch.einsum("...jx,nj,...nx->...j", ks.phi[..., :3], anc, n0)
+            + torch.einsum("...jx,nj,...nx->...j", ks.phi[..., 3:], anc, f))
 
 
 def rfc_implicit(model: PhysicsModel, qpos, vf, base_rot):
@@ -348,50 +403,18 @@ def _obj_frames(od: ObjDynParams, obj_qpos, obj_qvel) -> _ObjFrames:
                       a_smooth=torch.cat([gvec, gyro], dim=-1))
 
 
-def substep(model: PhysicsModel, state: SimState, ctrl_joint, vf, base_pos,
-            base_rot, plan: ct.ContactPlan | None = None,
-            obj_qpos: torch.Tensor | None = None) -> SimState:
-    """One 450 Hz physics substep with stable-PD control and contacts.
-    `plan`: the control step's candidate selection (None = rank every
-    candidate). `obj_qpos` (..., n_obj, 7): the static objects' poses
-    (movable objects take theirs from `state`)."""
-    st, tables, topo = model.st, model.tables, model.topo
+def _contact_accel(model: PhysicsModel, state: SimState, ks: dyn.KinState,
+                   tau_minus_C: torch.Tensor, solve_M, plan, obj_qpos,
+                   of: _ObjFrames | None):
+    """The contact-constrained accelerations of one substep: the floor,
+    joint-limit and object contact rows, the fused multi-RHS solve
+    [tau - C, J^T] -> [qacc_smooth, M^-1 J^T], the Delassus build and PSOR
+    (kernel K3). Returns (qacc (..., nv), the movable objects' accelerations
+    (..., n_obj, 6) or None)."""
+    tables = model.tables
     qpos, qvel = state.qpos, state.qvel
     dtype, device = qpos.dtype, qpos.device
-    movable = model.movable_objects and state.obj_qpos is not None
-    if movable:
-        obj_qpos = state.obj_qpos
-
-    ks = dyn.kin_state(st, qpos)
-    C = dyn.bias_force(tables, ks, qvel)
-    zeros6 = torch.zeros(qpos.shape[:-1] + (6,), dtype=dtype, device=device)
-    kd_full = torch.cat(
-        [zeros6, model.ctrl_t.jkd.expand(qpos.shape[:-1] + (69,))], dim=-1)
-
-    if model.solver == "ltdl":
-        R = ltdl.crba_packed(st, tables, topo, ks)
-        Rf_A = ltdl_cuda.factor(topo, ltdl.add_diag(topo, R, kd_full * model.dt))
-        Rf_M = ltdl_cuda.factor(topo, R.contiguous())
-
-        def solve_A(rhs):
-            return ltdl_cuda.solve(topo, Rf_A, rhs[..., None].contiguous())[..., 0]
-
-        def solve_M(B):
-            return ltdl_cuda.solve(topo, Rf_M, B.contiguous())
-    else:
-        M = dyn.mass_matrix(st, tables, ks)
-        M_pd = M + torch.diag_embed(kd_full * model.dt)
-        spd = chol_cuda.solve_only if model.use_pallas_chol else dyn.chol_solve
-
-        def solve_A(rhs):
-            return spd(M_pd, rhs[..., None].contiguous())[..., 0]
-
-        def solve_M(B):
-            return spd(M, B.contiguous())
-
-    torque = compute_torque(model, qpos, qvel, ctrl_joint, base_pos, C, solve_A)
-    tau = torch.cat([rfc_implicit(model, qpos, vf, base_rot), torque], dim=-1)
-
+    movable = of is not None
     fk_res = ks.fk_res
     margin, mu = model.spec.geom_margin, model.friction
     if plan is not None:
@@ -452,7 +475,6 @@ def substep(model: PhysicsModel, state: SimState, ctrl_joint, vf, base_pos,
     # the object side of every row, before compaction gathers it with J
     Jo = obj_rows = None
     if movable:
-        of = _obj_frames(od, obj_qpos, state.obj_qvel)
         Jo_c, obj_rows_c = ct.object_jacobian(cs, of.com_w)
         pad = J.shape[-2] - Jo_c.shape[-2]                 # limit rows
         Jo = torch.nn.functional.pad(Jo_c, (0, 0, 0, pad))
@@ -468,7 +490,7 @@ def substep(model: PhysicsModel, state: SimState, ctrl_joint, vf, base_pos,
             obj_rows)
 
     # one fused multi-RHS solve: [tau - C, J^T] -> [qacc_smooth, M^-1 J^T]
-    B = torch.cat([(tau - C)[..., None], J.transpose(-1, -2)], dim=-1)
+    B = torch.cat([tau_minus_C[..., None], J.transpose(-1, -2)], dim=-1)
     X = solve_M(B)
     qacc = X[..., 0]
     MiJt = X[..., 1:]
@@ -486,11 +508,10 @@ def substep(model: PhysicsModel, state: SimState, ctrl_joint, vf, base_pos,
         K_ang = torch.einsum("...rij,...rj->...ri", Iwi_r, Jo[..., 3:])
         same = ((obj_rows[..., :, None] == obj_rows[..., None, :])
                 & (obj_rows >= 0)[..., :, None])
-        u = state.obj_qvel
         extra = dict(
             A_extra=(torch.cat([K_lin, K_ang], dim=-1) @ Jo.transpose(-1, -2))
             * same,
-            vel_extra=torch.sum(Jo * (onehot @ u), dim=-1),
+            vel_extra=torch.sum(Jo * (onehot @ state.obj_qvel), dim=-1),
             acc_smooth_extra=torch.sum(Jo * (onehot @ of.a_smooth), dim=-1))
 
     A, rhs, Dinv, Rr = ct.contact_system(J, MiJt, qacc, qvel, depth, active,
@@ -499,16 +520,84 @@ def substep(model: PhysicsModel, state: SimState, ctrl_joint, vf, base_pos,
                            friction.contiguous(), active.contiguous(),
                            model.contact_iters)
     qacc = qacc + torch.einsum("...vc,...c->...v", MiJt, f[..., :J.shape[-2]])
+    if not movable:
+        return qacc, None
+    # the contact wrench about each object's CoM
+    w = torch.einsum("...rn,...r,...ri->...ni", onehot, f, Jo)
+    a_lin = w[..., :3] * of.minv[:, None] + of.a_smooth[..., :3]
+    a_ang = torch.einsum("...nij,...nj->...ni", of.Iw_inv, w[..., 3:]) \
+        + of.a_smooth[..., 3:]
+    return qacc, torch.cat([a_lin, a_ang], dim=-1)
+
+
+def substep(model: PhysicsModel, state: SimState, ctrl_joint, vf, base_pos,
+            base_rot, plan: ct.ContactPlan | None = None,
+            obj_qpos: torch.Tensor | None = None, jkp=None, jkd=None,
+            with_contacts: bool = True) -> SimState:
+    """One 450 Hz physics substep with stable-PD control and, unless
+    `with_contacts` is False, contacts. `plan`: the control step's
+    candidate selection (None = rank every candidate). `obj_qpos`
+    (..., n_obj, 7): the static objects' poses (movable objects take theirs
+    from `state`). `jkp`/`jkd`: this substep's PD gains (meta-PD); k_d
+    enters both the torque and the system M + K_d dt."""
+    st, tables, topo = model.st, model.tables, model.topo
+    qpos, qvel = state.qpos, state.qvel
+    dtype, device = qpos.dtype, qpos.device
+    movable = model.movable_objects and state.obj_qpos is not None
+    if movable:
+        obj_qpos = state.obj_qpos
+
+    ks = dyn.kin_state(st, qpos)
+    C = dyn.bias_force(tables, ks, qvel)
+    zeros6 = torch.zeros(qpos.shape[:-1] + (6,), dtype=dtype, device=device)
+    jkd_eff = model.ctrl_t.jkd if jkd is None else jkd
+    kd_full = torch.cat([zeros6, jkd_eff.expand(qpos.shape[:-1] + (69,))],
+                        dim=-1)
+
+    if model.solver == "ltdl":
+        R = ltdl.crba_packed(st, tables, topo, ks)
+        Rf_A = ltdl_cuda.factor(topo, ltdl.add_diag(topo, R, kd_full * model.dt))
+        Rf_M = ltdl_cuda.factor(topo, R.contiguous())
+
+        def solve_A(rhs):
+            return ltdl_cuda.solve(topo, Rf_A, rhs[..., None].contiguous())[..., 0]
+
+        def solve_M(B):
+            return ltdl_cuda.solve(topo, Rf_M, B.contiguous())
+    else:
+        M = dyn.mass_matrix(st, tables, ks)
+        M_pd = M + torch.diag_embed(kd_full * model.dt)
+        spd = chol_cuda.solve_only if model.use_pallas_chol else dyn.chol_solve
+
+        def solve_A(rhs):
+            return spd(M_pd, rhs[..., None].contiguous())[..., 0]
+
+        def solve_M(B):
+            return spd(M, B.contiguous())
+
+    torque = compute_torque(model, qpos, qvel, ctrl_joint, base_pos, C,
+                            solve_A, jkp, jkd)
+    if model.ctrl.rfc_mode == "explicit":
+        tau = torch.cat([zeros6, torque], dim=-1) + rfc_explicit(model, ks, vf)
+    else:
+        tau = torch.cat([rfc_implicit(model, qpos, vf, base_rot), torque],
+                        dim=-1)
+
+    of = _obj_frames(model.obj_dyn, obj_qpos, state.obj_qvel) if movable else None
+    if with_contacts:
+        qacc, obj_acc = _contact_accel(model, state, ks, tau - C, solve_M,
+                                       plan, obj_qpos, of)
+    else:
+        # no contact rows: the smooth acceleration alone, and the objects
+        # fall as free bodies (gravity and gyroscopic terms)
+        qacc = solve_M((tau - C)[..., None])[..., 0]
+        obj_acc = of.a_smooth if movable else None
 
     obj_qpos_new, obj_qvel_new = state.obj_qpos, state.obj_qvel
     if movable:
-        # the contact wrench about each object's CoM, then free-body
-        # semi-implicit Euler
-        w = torch.einsum("...rn,...r,...ri->...ni", onehot, f, Jo)
-        a_lin = w[..., :3] * of.minv[:, None] + of.a_smooth[..., :3]
-        a_ang = torch.einsum("...nij,...nj->...ni", of.Iw_inv, w[..., 3:]) \
-            + of.a_smooth[..., 3:]
-        u_new = u + torch.cat([a_lin, a_ang], dim=-1) * model.dt
+        # free-body semi-implicit Euler; the orientation integrates the
+        # world angular velocity (a left product, unlike the humanoid's root)
+        u_new = state.obj_qvel + obj_acc * model.dt
         if model.qvel_clip:
             u_new = torch.clamp(u_new, -model.qvel_clip, model.qvel_clip)
         v_origin = u_new[..., :3] + torch.linalg.cross(
@@ -528,20 +617,33 @@ def substep(model: PhysicsModel, state: SimState, ctrl_joint, vf, base_pos,
 
 def control_step(model: PhysicsModel, state: SimState, action: torch.Tensor,
                  expert_kin_pose: torch.Tensor, base_rot: torch.Tensor,
-                 obj_qpos: torch.Tensor | None = None) -> SimState:
+                 obj_qpos: torch.Tensor | None = None,
+                 with_contacts: bool = True) -> SimState:
     """One 30 Hz control step: ``n_substeps`` substeps under a fixed action
-    [69 joint targets, 6 residual root forces]. `obj_qpos` poses static
-    objects for the whole step; movable objects carry theirs in `state`."""
+    [69 joint targets, ``vf_dim`` residual forces, with ``meta_pd``
+    2 x ``n_substeps`` gain scales]. `obj_qpos` poses static objects for
+    the whole step; movable objects carry theirs in `state`. Without
+    contacts no contact plan is built."""
     c = model.ctrl
     ctrl_joint = action[..., :69] * model.ctrl_t.a_scale
     vf = action[..., 69:69 + c.vf_dim]
     base_pos = expert_kin_pose if c.action_v == 1 else model.ctrl_t.a_ref
     plan = None
-    if model.plan_contacts:
+    if model.plan_contacts and with_contacts:
         plan_obj = (state.obj_qpos if model.movable_objects
                     and state.obj_qpos is not None else obj_qpos)
         plan = build_contact_plan(model, state.qpos, plan_obj)
-    for _ in range(model.n_substeps):
+    n = model.n_substeps
+    if c.meta_pd:
+        # substep i scales every joint's k_p by clip(meta_i + 1, 0, 10) and
+        # its k_d by clip(meta_{n+i} + 1, 0, 10), per env
+        meta = action[..., 69 + c.vf_dim:model.action_dim]
+        scale = torch.clamp(meta + 1, 0, 10)
+    for i in range(n):
+        kp = kd = None
+        if c.meta_pd:
+            kp = model.ctrl_t.jkp * scale[..., i, None]
+            kd = model.ctrl_t.jkd * scale[..., n + i, None]
         state = substep(model, state, ctrl_joint, vf, base_pos, base_rot, plan,
-                        obj_qpos)
+                        obj_qpos, jkp=kp, jkd=kd, with_contacts=with_contacts)
     return state

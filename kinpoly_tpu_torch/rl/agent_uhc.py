@@ -131,7 +131,7 @@ class UHCAgent:
             reward_mean=traj.rewards.mean(),
             episode_done=traj.masks.numel() - traj.masks.sum(),
             fail_frac=traj.fails.to(traj.rewards.dtype).mean(),
-            # per-component decomposition: [pose, vel, ee, com, vf]
+            # per-component decomposition of the reward (5 to 7 terms)
             reward_components=traj.reward_info.mean(dim=(0, 1)))
         return metrics, traj.percents, traj.clips, traj.masks == 0
 

@@ -1,6 +1,6 @@
 """UHC rewards (port of ``kinpoly_tpu/rl/rewards.py``): the UHC family
 (``world_rfc_implicit`` and its ``_v1_mul``/``_v2``/``_v3`` variants,
-``local_rfc_implicit``), the legacy imitation rewards that run on the same
+``local_rfc_implicit``, and ``world_rfc_explicit``/``local_rfc_explicit``), the legacy imitation rewards that run on the same
 inputs (``quat_v2``, ``deep_mimic``, ``local_world_*``, ``world_quat*``, ...)
 and the ``get_uhc_reward`` lookup; and the kin-poly rewards of the AR env
 (``dynamic_supervision_v2``-``_v6``, ``constant``) on ``ARRewardInputs``
@@ -9,8 +9,9 @@ with the ``get_kin_poly_reward`` lookup. The controller fine-tuning ids
 
 Every reward is a function of a ``RewardInputs`` bundle and the weight dict
 ``ws`` (the env config's fields), batched over leading dims, and returns
-(reward (...,), components (..., C)). The two ``*_explicit`` ids need
-explicit residual forces in the engine, which the port does not have yet.
+(reward (...,), components (..., C)). The two ``*_explicit`` ids read the
+explicit residual forces' per-body contact points and forces (``vf_cp``,
+``vf_force``).
 """
 
 from __future__ import annotations
@@ -43,6 +44,9 @@ class RewardInputs(NamedTuple):
     e_bangvel: torch.Tensor = None
     # residual force action
     vf: torch.Tensor = None
+    # explicit residual forces per body (the *_explicit ids)
+    vf_cp: torch.Tensor = None         # (..., n_vb, 3) contact points
+    vf_force: torch.Tensor = None      # (..., n_vb, 3 or 6) force[, torque]
     # local-frame features (the ids in NEEDS_LOCAL_IDS and local_*)
     qpos: torch.Tensor = None          # (..., 76)
     rq_rmh: torch.Tensor = None        # (..., 4) de-headed root quat
@@ -197,6 +201,46 @@ def local_rfc_implicit(inp: RewardInputs, ws: dict):
               + w_rv * root_vel_r + w_vf * vf_r) / total
     return reward, torch.stack(
         [pose_r, vel_r, ee_r, root_pose_r, root_vel_r, vf_r], dim=-1)
+
+
+def _explicit_vf_rewards(inp: RewardInputs, k_vf: float, k_cp: float):
+    """exp(-k_vf sum ||force_i||^2) and exp(-k_cp sum ||point_i||^2) over
+    the explicit residual forces' bodies."""
+    vf_loss = torch.sum(inp.vf_force ** 2, dim=(-2, -1))
+    cp_loss = torch.sum(inp.vf_cp ** 2, dim=(-2, -1))
+    return torch.exp(-k_vf * vf_loss), torch.exp(-k_cp * cp_loss)
+
+
+def world_rfc_explicit(inp: RewardInputs, ws: dict):
+    """world_rfc_implicit's first four terms, and the explicit residual
+    forces' magnitude and contact-point terms."""
+    w_p, w_v, w_e = ws.get("w_p", 0.6), ws.get("w_v", 0.1), ws.get("w_e", 0.2)
+    w_c, w_vf, w_cp = ws.get("w_c", 0.1), ws.get("w_vf", 0.0), ws.get("w_cp", 0.0)
+    k_vf, k_cp = ws.get("k_vf", 1.0), ws.get("k_cp", 1.0)
+    _, comps = world_rfc_implicit(inp, dict(ws, w_vf=0.0))
+    pose_r, vel_r, ee_r, com_r = comps[..., :4].unbind(-1)
+    vf_r, cp_r = _explicit_vf_rewards(inp, k_vf, k_cp)
+    total = w_p + w_v + w_e + w_c + w_vf + w_cp
+    reward = (w_p * pose_r + w_v * vel_r + w_e * ee_r + w_c * com_r
+              + w_vf * vf_r + w_cp * cp_r) / total
+    return reward, torch.stack([pose_r, vel_r, ee_r, com_r, vf_r, cp_r], dim=-1)
+
+
+def local_rfc_explicit(inp: RewardInputs, ws: dict):
+    """local_rfc_implicit's first five terms, and the explicit residual
+    forces' magnitude and contact-point terms."""
+    w_p, w_v, w_e = ws.get("w_p", 0.4), ws.get("w_v", 0.0), ws.get("w_e", 0.2)
+    w_rp, w_rv = ws.get("w_rp", 0.1), ws.get("w_rv", 0.1)
+    w_vf, w_cp = ws.get("w_vf", 0.1), ws.get("w_cp", 0.1)
+    k_vf, k_cp = ws.get("k_vf", 20.0), ws.get("k_cp", 10.0)
+    pose_r, vel_r, ee_r = _local_terms(inp, ws)
+    root_pose_r, root_vel_r = _root_pose_vel(inp, ws)
+    vf_r, cp_r = _explicit_vf_rewards(inp, k_vf, k_cp)
+    total = w_p + w_v + w_e + w_rp + w_rv + w_vf + w_cp
+    reward = (w_p * pose_r + w_v * vel_r + w_e * ee_r + w_rp * root_pose_r
+              + w_rv * root_vel_r + w_vf * vf_r + w_cp * cp_r) / total
+    return reward, torch.stack(
+        [pose_r, vel_r, ee_r, root_pose_r, root_vel_r, vf_r, cp_r], dim=-1)
 
 
 def _root_composite(inp: RewardInputs, ws: dict):
@@ -386,12 +430,10 @@ UHC_REWARDS: dict[str, Callable] = {
     "world_rfc_implicit_v1_mul": world_rfc_implicit_v1_mul,
     "world_rfc_implicit_v2": world_rfc_implicit_v2,
     "world_rfc_implicit_v3": world_rfc_implicit_v3,
+    "world_rfc_explicit": world_rfc_explicit,
     "local_rfc_implicit": local_rfc_implicit,
+    "local_rfc_explicit": local_rfc_explicit,
 }
-
-# the explicit-RFC ids split the action into per-body contact points and
-# forces, which only an engine with explicit residual forces applies
-EXPLICIT_IDS = frozenset(("world_rfc_explicit", "local_rfc_explicit"))
 
 LEGACY_IMITATION_REWARDS: dict[str, Callable] = {
     "quat_v2": quat_space_reward_v2,
@@ -428,9 +470,6 @@ def get_uhc_reward(reward_id: str) -> Callable:
     lookup order)."""
     if reward_id in LEGACY_IMITATION_REWARDS:
         return LEGACY_IMITATION_REWARDS[reward_id]
-    if reward_id in EXPLICIT_IDS:
-        raise KeyError(f"reward_id {reward_id!r} needs explicit residual "
-                       f"forces in the engine, which the port does not have")
     if reward_id not in UHC_REWARDS:
         raise KeyError(f"unknown UHC reward_id {reward_id!r}; available: "
                        f"{sorted(UHC_REWARDS) + sorted(LEGACY_IMITATION_REWARDS)}")

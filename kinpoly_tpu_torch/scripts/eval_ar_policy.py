@@ -184,7 +184,8 @@ def take_rows(ev: AREval, traj: roa.ARTrajectory) -> tuple[list, list]:
             model, pred, obj_i, action,
             head_pose_pred=fklib.fk(model.st, pred).xpos[:, head],
             head_pose_gt=fklib.fk(model.st, gt).xpos[:, head],
-            fail_safe_used=fs_count > 0)
+            fail_safe_used=fs_count > 0, verts=model.cand_verts,
+            vert_body=model.cand_body)
         m["succ"] = float(succ)
         rows.append(m)
         records.append(dict(pred=pred.cpu().numpy(), gt=gt.cpu().numpy(),

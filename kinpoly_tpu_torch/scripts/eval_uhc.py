@@ -4,7 +4,8 @@
     python -m kinpoly_tpu_torch.scripts.eval_uhc --iter 13000 \\
         --data data_bank/clips24.pkl [--seeds 4] [--metrics] [--device cpu]
 
-Loads ``<out>/motion_im/<cfg>/models/iter_<iter>.p``, builds the UHC env on
+Loads ``<out>/motion_im/<cfg>/models/iter_<iter>.p`` of ``--cfg`` (a named
+config or a UHC YAML path, named after its basename), builds the UHC env on
 the synthetic SMPL humanoid over the takes of ``--data`` (a
 ``data_bank/*.pkl`` expert bank: a dict of takes with ``qpos`` (T, 76)),
 and runs one env per take with deterministic actions for ``--max-steps``
@@ -33,8 +34,7 @@ import torch
 
 from kinpoly_tpu_torch import resolve_device
 from kinpoly_tpu_torch.anim.spec import standing_pose, synthetic_spec
-from kinpoly_tpu_torch.config.defaults import (NAMED_CONFIGS, UHCConfig,
-                                               uhc_control_params)
+from kinpoly_tpu_torch.config.defaults import UHCConfig, uhc_control_params
 from kinpoly_tpu_torch.data.banks import load_takes
 from kinpoly_tpu_torch.envs.humanoid_im import HumanoidImEnv, make_bank
 from kinpoly_tpu_torch.metrics.pose_metrics import evaluate_pair
@@ -72,10 +72,12 @@ def get_takes(data: str | None, n_clips: int | None = None,
 
 def build_agent(iter_: int, takes: dict, device, dtype=torch.float32,
                 out_root: str = "results", cfg_name: str = "uhc") -> UHCAgent:
-    """The UHC agent of config `cfg_name` with checkpoint `iter_` loaded, on
-    an evaluation env over `takes`."""
+    """The UHC agent of config `cfg_name` (a name or a YAML path) with
+    checkpoint `iter_` loaded, on an evaluation env over `takes`. The
+    physics takes the default control parameters, as the JAX script's
+    (implicit residual forces, no limit)."""
     device = resolve_device(device)
-    cfg = UHCConfig.named(cfg_name)
+    cfg = UHCConfig.load(cfg_name)
     spec = synthetic_spec()
     model = eng.build_model(spec, uhc_control_params(spec), device=device,
                             dtype=dtype)
@@ -127,7 +129,8 @@ def mean_row(rows: dict) -> dict:
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--cfg", default="uhc", choices=sorted(NAMED_CONFIGS))
+    p.add_argument("--cfg", default="uhc",
+                   help="a named config (uhc, uhc_quatv2) or a UHC YAML path")
     p.add_argument("--iter", type=int, default=13000)
     p.add_argument("--data", default=None,
                    help="expert bank (data_bank/*.pkl); default: seeded clips")

@@ -5,7 +5,8 @@ an evaluation loop, or over one training iteration or epoch.
     python -m kinpoly_tpu_torch.scripts.profile_eval --steps 3 \\
         [--data data_bank/clips24.pkl] [--trace eval_trace.json]
     python -m kinpoly_tpu_torch.scripts.profile_eval --train \\
-        [--data data_bank/clips24.pkl] [--n-envs 1024] [--steps 8]
+        [--cfg uhc | --cfg my_explicit.yml] [--data data_bank/clips24.pkl] \\
+        [--n-envs 1024] [--steps 8]
     python -m kinpoly_tpu_torch.scripts.profile_eval --ar --steps 5 \\
         [--cfg use_of] [--data BANK] [--ar-iter N --out DIR]
     python -m kinpoly_tpu_torch.scripts.profile_eval --ar-train \
@@ -14,7 +15,8 @@ an evaluation loop, or over one training iteration or epoch.
 
 Evaluation: one env per take, ``--steps`` control steps. ``--train``: one
 ``train_epoch`` of ``--n-envs`` envs x ``--steps`` control steps (rollout,
-norm, GAE, PPO update) after one warm-up iteration. ``--ar``: the AR
+norm, GAE, PPO update) after one warm-up iteration; both under the UHC
+config ``--cfg`` (a name or a YAML path; uhc by default). ``--ar``: the AR
 evaluation of ``eval_ar_policy`` under the named config ``--cfg``
 (checkpoint ``--ar-iter`` under ``--out``, the UHC controller
 ``--uhc-checkpoint``, one env per take of the config's wild bank by
@@ -160,8 +162,9 @@ def main(argv=None):
     p.add_argument("--trace", default=None, help="write a chrome trace here")
     p.add_argument("--ar", action="store_true",
                    help="profile the AR evaluation instead")
-    p.add_argument("--cfg", default="kin_poly", choices=sorted(AR_DEFAULTS),
-                   help="the AR phases' named config")
+    p.add_argument("--cfg", default=None,
+                   help="the AR phases' named config (kin_poly, use_of); "
+                        "else a UHC config name or YAML path (uhc)")
     p.add_argument("--ar-iter", type=int, default=None)
     p.add_argument("--out", default=None,
                    help="output root of the AR checkpoint")
@@ -170,9 +173,16 @@ def main(argv=None):
     p.add_argument("--ar-train", action="store_true",
                    help="time and profile AR training epochs instead")
     args = p.parse_args(argv)
-    _, _, ar_iter, out = AR_DEFAULTS[args.cfg]
-    args.ar_iter = ar_iter if args.ar_iter is None else args.ar_iter
-    args.out = args.out or out
+    if args.ar or args.ar_train:
+        args.cfg = args.cfg or "kin_poly"
+        if args.cfg not in AR_DEFAULTS:
+            p.error(f"--cfg {args.cfg!r}: the AR phases take "
+                    f"{sorted(AR_DEFAULTS)}")
+        _, _, ar_iter, out = AR_DEFAULTS[args.cfg]
+        args.ar_iter = ar_iter if args.ar_iter is None else args.ar_iter
+        args.out = args.out or out
+    else:
+        args.cfg = args.cfg or "uhc"
 
     if args.ar_train:
         profile_ar_train(args)
@@ -199,7 +209,7 @@ def main(argv=None):
     takes = get_takes(args.data, args.clips, args.frames, args.seed)
     if args.train:
         steps = args.steps or 8
-        cfg = UHCConfig()
+        cfg = UHCConfig.load(args.cfg)
         n_envs = args.n_envs or 1024
         agent = build_trainer(takes, cfg, n_envs, steps, device="cuda")
         agent.train_epoch(adaptive=cfg.adaptive_params(0))      # warm-up
@@ -208,7 +218,7 @@ def main(argv=None):
                  f"control steps", args.trace)
     else:
         steps = args.steps or 3
-        agent = build_agent(args.iter, takes, "cuda")
+        agent = build_agent(args.iter, takes, "cuda", cfg_name=args.cfg)
         agent.eval_coverage(max_steps=2)                        # warm-up
         profiled(lambda: agent.eval_coverage(max_steps=steps), steps,
                  f"evaluation, {len(takes)} envs x {steps} control steps",

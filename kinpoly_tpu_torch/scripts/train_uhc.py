@@ -2,12 +2,17 @@
 ``scripts/train_uhc.py``).
 
     python -m kinpoly_tpu_torch.scripts.train_uhc --data data_bank/clips24.pkl \\
-        [--cfg uhc_quatv2] [--hard-states data_bank/hard_states_getup.pkl] \\
+        [--cfg uhc_quatv2 | --cfg my_explicit.yml] \\
+        [--hard-states data_bank/hard_states_getup.pkl] \\
         [--max-iters 100] [--iter 100]
     python -m kinpoly_tpu_torch.scripts.train_uhc --device cpu --max-iters 1 \\
         --n-envs 2 --rollout-steps 3 --data data_bank/clips24.pkl --out /tmp/uhc
 
-Builds the UHC env of ``--cfg`` (LTDL solver, as the JAX script uses on an
+``--cfg`` is a named config or a path to a UHC YAML (named after its
+basename), whose control parameters the physics takes: the residual-force
+scale and limit, implicit or explicit residual forces (their bodies and
+torques) and meta-PD; the policy's action width follows them. Builds the
+UHC env of ``--cfg`` (LTDL solver, as the JAX script uses on an
 accelerator) on the synthetic SMPL humanoid over the takes of ``--data``
 (a dict of takes with ``qpos`` (T, 76), or one take), then trains from the
 current epoch up to iteration ``--max-iters`` (default: the config's
@@ -31,8 +36,7 @@ import torch
 
 from kinpoly_tpu_torch import resolve_device
 from kinpoly_tpu_torch.anim.spec import standing_pose, synthetic_spec
-from kinpoly_tpu_torch.config.defaults import (NAMED_CONFIGS, UHCConfig,
-                                               uhc_control_params)
+from kinpoly_tpu_torch.config.defaults import UHCConfig
 from kinpoly_tpu_torch.data.banks import load_hard_states
 from kinpoly_tpu_torch.envs.humanoid_im import HumanoidImEnv, make_bank
 from kinpoly_tpu_torch.physics import engine as eng
@@ -51,7 +55,8 @@ def build_trainer(takes: dict, cfg: UHCConfig, n_envs: int | None = None,
                   reactive_rate: float | None = None, device=None,
                   dtype=torch.float32, out_root: str = "results",
                   **model_kw) -> UHCAgent:
-    """A fresh UHC agent of `cfg` on a training env over `takes`; with
+    """A fresh UHC agent of `cfg` on a training env over `takes`, its
+    physics built from ``cfg.control_params`` (as the JAX trainer's); with
     `hard_states` (qpos (K, 76), qvel (K, 75)) the env resets with
     reactive_v 2. `model_kw` goes to ``engine.build_model`` (e.g.
     ``use_pallas_chol=True`` for the dense configuration)."""
@@ -62,7 +67,7 @@ def build_trainer(takes: dict, cfg: UHCConfig, n_envs: int | None = None,
     if rollout_steps:
         tc.rollout_steps = rollout_steps
     spec = synthetic_spec()
-    model = eng.build_model(spec, uhc_control_params(spec), device=device,
+    model = eng.build_model(spec, cfg.control_params(spec), device=device,
                             dtype=dtype, **model_kw)
     bank = make_bank(spec, model, list(takes.values()))
     env_cfg = cfg.env_config()
@@ -96,7 +101,8 @@ def train(agent: UHCAgent, cfg: UHCConfig, max_iters: int,
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0],
                                 epilog=EPILOG)
-    p.add_argument("--cfg", default="uhc", choices=sorted(NAMED_CONFIGS))
+    p.add_argument("--cfg", default="uhc",
+                   help="a named config (uhc, uhc_quatv2) or a UHC YAML path")
     p.add_argument("--data", default=None,
                    help="expert bank (data_bank/*.pkl); default: seeded clips")
     p.add_argument("--hard-states", default=None,
@@ -119,7 +125,7 @@ def main(argv=None):
     p.add_argument("--out", default="results")
     args = p.parse_args(argv)
 
-    cfg = UHCConfig.named(args.cfg)
+    cfg = UHCConfig.load(args.cfg)
     log = create_logger(os.path.join(cfg.out_dir(args.out), "log.txt"))
     hard_states = None
     if args.hard_states:

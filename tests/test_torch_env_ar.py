@@ -308,7 +308,8 @@ def test_action_success(ar, action):
             st = tpm.action_success(
                 ar.tm, torch.tensor(q), torch.tensor(o), a,
                 head_pose_pred=torch.tensor(hp), head_pose_gt=torch.tensor(hg),
-                fail_safe_used=fs)
+                fail_safe_used=fs, verts=ar.tm.cand_verts,
+                vert_body=ar.tm.cand_body)
             assert sj == st
             results.append(st)
     assert True in results and (action == "None" or results.count(True) < len(results))

@@ -199,10 +199,16 @@ def _config_matches_yaml(name):
     yml = jconfig.load_yaml(name)
     cfg = UHCConfig.named(name)
     names = {f.name for f in dataclasses.fields(cfg)} - {"name"}
-    assert names == set(yml)
+    assert set(yml) <= names
     for k, v in yml.items():
         got = getattr(cfg, k)
         assert (tuple(v) if isinstance(v, list) else v) == got, k
+    # the fields the YAML does not set hold the JAX config's defaults
+    jcfg = jconfig.UHCConfig(name, "results")
+    for k in sorted(names - set(yml) - {"adp_iter_cp", "adp_noise_rate_cp",
+                                        "adp_log_std_cp", "adp_policy_lr_cp"}):
+        assert getattr(cfg, k) == getattr(jcfg, k), k
+    assert cfg.adaptive_params(7) == jcfg.adaptive_params(7)
     assert cfg.name == jconfig.UHCConfig(name, "results").id
     assert cfg.model_dir("out") == jconfig.UHCConfig(name, "out").model_dir
 

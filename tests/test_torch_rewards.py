@@ -1,9 +1,10 @@
 """Port parity of the UHC reward family, observation v2 and the head and
 root-height terminations against kinpoly_tpu, float64 on the CPU.
 
-Every non-explicit UHC reward id runs on the same seeded numpy inputs on
-both sides; the env-level tests step both envs on the synthetic humanoid
-from the same states."""
+Every UHC reward id runs on the same seeded numpy inputs on both sides;
+the env-level tests step both envs on the synthetic humanoid from the same
+states, also with explicit residual forces and meta-PD under both
+``*_explicit`` rewards."""
 
 import dataclasses
 
@@ -39,11 +40,12 @@ IDS = sorted(set(trw.UHC_REWARDS) | set(trw.LEGACY_IMITATION_REWARDS))
 
 def test_reward_ids_cover_the_jax_registry():
     jax_ids = set(jrw.UHC_REWARDS) | set(jrw.LEGACY_IMITATION_REWARDS)
-    assert set(IDS) == jax_ids - trw.EXPLICIT_IDS
+    assert set(IDS) == jax_ids
     assert trw.NEEDS_LOCAL_IDS == jrw.NEEDS_LOCAL_IDS
-    for rid in trw.EXPLICIT_IDS:
-        with pytest.raises(KeyError, match="explicit"):
-            trw.get_uhc_reward(rid)
+    for rid in jax_ids:
+        assert callable(trw.get_uhc_reward(rid))
+    with pytest.raises(KeyError, match="unknown"):
+        trw.get_uhc_reward("no_such_reward")
 
 
 def _quats(rng, n, k):
@@ -80,6 +82,8 @@ def _reward_inputs(seed, n=6):
             e[:, 3:7] /= np.linalg.norm(e[:, 3:7], axis=-1, keepdims=True)
         out[f"e_{k}"] = e
     out.update(vf=rng.normal(0, 0.5, (n, 6)),
+               vf_cp=rng.normal(0, 0.1, (n, 24, 3)),
+               vf_force=rng.normal(0, 0.1, (n, 24, 6)),
                b_diffw=rng.uniform(0, 1, 23), jpos_diffw=rng.uniform(0, 1, 24))
     assert set(out) == set(trw.RewardInputs._fields)
     return out
@@ -122,9 +126,29 @@ def world():
                 q0=q0, v0=v0, jcfg=jconfig.UHCConfig("uhc", "results"))
 
 
+@pytest.fixture(scope="module")
+def explicit_world(world):
+    """`world` with explicit residual forces on every body and meta-PD
+    (a 315-wide action), residual forces clipped at uhc.yml's limit."""
+    spec = sp.synthetic_spec(0)
+    jspec = mjcf.HumanoidSpec(**{f.name: getattr(spec, f.name)
+                                 for f in dataclasses.fields(spec)})
+    kw = dict(rfc_mode="explicit", meta_pd=True, rfc_lim=100.0)
+    jm = jeng.build_model(jspec, jdefaults.uhc_control_params(jspec, **kw),
+                          solver="ltdl")
+    tm = teng.build_model(spec, uhc_control_params(spec, **kw), device="cpu",
+                          dtype=torch.float64)
+    takes = [t.astype(np.float64) for t in make_clips(spec, 3, 5, seed=11)]
+    for t in takes:
+        t[:, 2] += 0.5
+    return dict(world, jm=jm, tm=tm, tbank=make_bank(spec, tm, takes),
+                jbank=jexpert.stack_bank([jexpert.from_qpos(
+                    jspec, t, dt=jm.control_dt) for t in takes]))
+
+
 def _step_both(w, drop=0.0, **cfg_kw):
     """Reset 3 envs on their clips, lower env 0 by `drop`, one control step
-    of a seeded action on both sides."""
+    of a seeded action of the env's width on both sides."""
     jcfg = dataclasses.replace(w["jcfg"].env_config(), **cfg_kw)
     tcfg = dataclasses.replace(UHCConfig().env_config(), **cfg_kw)
     jenv = jenv_mod.HumanoidImEnv(w["jm"], jcfg, w["jbank"], w["q0"], w["v0"],
@@ -140,7 +164,8 @@ def _step_both(w, drop=0.0, **cfg_kw):
     lowered[0, 2] -= drop
     js = js._replace(sim=js.sim._replace(qpos=jnp.asarray(lowered)))
     ts = ts._replace(sim=ts.sim._replace(qpos=torch.tensor(lowered)))
-    action = np.random.RandomState(3).normal(0, 0.3, (n, 75))
+    assert tenv.action_dim == jenv.action_dim
+    action = np.random.RandomState(3).normal(0, 0.3, (n, tenv.action_dim))
     jout = jax.jit(jax.vmap(jenv.step))(js, jnp.asarray(action))
     tout = tenv.step(ts, torch.tensor(action))
     return tobs, jout, tout
@@ -175,3 +200,25 @@ def test_head_and_root_termination_match_jax(world, term):
     np.testing.assert_array_equal(tinfo.fail.numpy(), np.asarray(jinfo["fail"]))
     np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
     assert tinfo.fail.tolist() == [True, False, False]
+
+
+@pytest.mark.parametrize("reward_id", ["world_rfc_explicit", "local_rfc_explicit"])
+def test_step_explicit_meta_pd_matches_jax(explicit_world, reward_id):
+    """One env step with a 315-wide action: explicit residual forces on
+    every body, per-substep PD gains, and the explicit reward's vf and cp
+    terms."""
+    _, (js2, jobs2, jr, jd, jinfo), (ts2, tobs2, tr, td, tinfo) = _step_both(
+        explicit_world, reward_id=reward_id, w_cp=0.1, k_cp=10.0)
+    np.testing.assert_allclose(ts2.sim.qpos.numpy(), np.asarray(js2.sim.qpos),
+                               rtol=0, atol=ENV_TOL)
+    np.testing.assert_allclose(ts2.sim.qvel.numpy(), np.asarray(js2.sim.qvel),
+                               rtol=0, atol=ENV_TOL)
+    np.testing.assert_allclose(tobs2.numpy(), np.asarray(jobs2), rtol=0, atol=ENV_TOL)
+    np.testing.assert_allclose(tr.numpy(), np.asarray(jr), rtol=0, atol=STEP_TOL)
+    assert tinfo.reward_info.shape == (3, 6 if reward_id.startswith("world") else 7)
+    np.testing.assert_allclose(tinfo.reward_info.numpy(),
+                               np.asarray(jinfo["reward_info"]), rtol=0,
+                               atol=STEP_TOL)
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    # the cp and vf terms are live: neither saturates at 0 or 1
+    assert 0.0 < float(tinfo.reward_info[:, -1].min()) < 1.0

@@ -80,6 +80,30 @@ def test_train_uhc_quatv2_one_iteration(tmp_path, capsys):
     assert np.isfinite(rec["reward_mean"]) and rec["reward_mean"] > 0
 
 
+def test_train_uhc_explicit_meta_pd_yaml(tmp_path, capsys):
+    """--cfg as a YAML path: uhc.yml with explicit residual forces on every
+    body, torques, meta-PD and local_rfc_explicit trains a 315-wide
+    policy; the run is named after the file."""
+    text = open(os.path.join(ROOT, "kinpoly_tpu/config/yaml/uhc.yml")).read()
+    text = text.replace("residual_force_mode: implicit", (
+        "residual_force_mode: explicit\nresidual_force_bodies: all\n"
+        "residual_force_torque: true\nmeta_pd: true")).replace(
+        "reward_id: world_rfc_implicit", "reward_id: local_rfc_explicit")
+    cfg = tmp_path / "my_explicit.yml"
+    cfg.write_text(text.replace("  k_vf: 1.0", "  k_vf: 1.0\n  w_cp: 0.1\n  k_cp: 10.0"))
+    train_uhc.main(["--device", "cpu", "--cfg", str(cfg), "--data", CLIPS24,
+                    "--clips", "2", "--frames", "6", "--max-iters", "1",
+                    "--n-envs", "2", "--rollout-steps", "2",
+                    "--out", str(tmp_path / "out")])
+    assert "iter 0  R" in capsys.readouterr().out
+    models = tmp_path / "out" / "motion_im" / "my_explicit" / "models"
+    rec = json.loads((models / "uhc_my_explicit_metrics.jsonl").read_text())
+    assert np.isfinite(rec["reward_mean"]) and rec["reward_mean"] > 0
+    assert {f"reward_components/{i}" for i in range(7)} <= set(rec)
+    ck = weights.load_uhc_checkpoint(str(models / "iter_0001.p"))
+    assert ck["policy"]["bank.b_315_256"].shape == (8, 315)
+
+
 def test_eval_uhc_band_and_metrics(capsys):
     eval_uhc.main(["--device", "cpu", "--data", CLIPS24, "--clips", "2",
                    "--frames", "3", "--seeds", "2", "--metrics",
