@@ -124,6 +124,26 @@ Phases, one line each with its seconds:
               eval_pose_all on phase 10's records written to a temporary
               directory as eval_ar_policy writes them: its mean row equals
               phase 10's within 1e-6
+ 14. data     the data path (no kernel on it; the counters are read and
+              stay 0): (a) ground_legs and ground_arms on the first 4 takes
+              of clips24, the grid search's batched FK card f32 against
+              CPU f64: the delta picked must agree on every frame whose
+              grid margin (|min z - clearance|, and for a frame no delta
+              grounds the gap between its two best deltas) exceeds 1e-4,
+              near ties counted and printed; ms per take; (b)
+              process_amass_dir on 6 seeded AMASS npz sequences of 4-8 s
+              at 120 Hz in a temporary directory, with flip_augment: the
+              same takes kept as on the CPU, qpos within 1e-4 of CPU f64,
+              the bank read back by read_bank and stacked by
+              AMASSDataset.to_bank on the card; ms per take; export_global_mjcf
+              of the synthetic humanoid read back by parse_humanoid (tree,
+              offsets and ranges recovered; ms); (c) view_motion from
+              --bank data_bank/wild_takes_r5.pkl --take a push take and from
+              --result on one of phase 10's records: each HTML's payload
+              parsed, its joints (rounded to 4 decimals) at most one
+              rounding step from the CPU's; ms per file;
+              (d) the three fine_tune rewards on 1024 seeded envs, card
+              f32 against CPU f64 within 1e-5
 Then a JSON line with every kernel's numbers, the card's nvidia-smi line,
 and as the last line {"ok": true, "device": {...}}. Any failure exits
 non-zero before that line; a watchdog ends the run past 10 minutes.
@@ -191,6 +211,13 @@ OF_ATOL = 1e-3                        # flow features, card f32 vs CPU f64
 MODES_ITERS = 2
 MODES_TIMED_STEPS = 3                 # host ms per control step, each mode
 POSE_ALL_ATOL = 1e-6                  # eval_pose_all's mean row vs phase 10's
+# the data phase
+GROUND_TAKES = 4                      # clips24 takes through the grounding
+GROUND_TIE = 1e-4                     # a grid margin under this is a near tie
+AMASS_SEQS, AMASS_FPS = 6, 120.0      # seeded AMASS sequences of 4-8 s
+DATA_ATOL = 1e-4                      # AMASS qpos, card f32 vs CPU f64
+VIEW_STEPS = 1                        # viewer joints: 4-decimal rounding steps apart
+FT_ENVS, FT_ATOL = 1024, 1e-5         # fine_tune rewards, card f32 vs CPU f64
 T0 = time.perf_counter()
 
 
@@ -1049,6 +1076,257 @@ def seeded_gray_clip(n: int, seed: int) -> np.ndarray:
     return np.stack(frames)
 
 
+def grounding_picks(spec, q: np.ndarray, which: str, device):
+    """The grounding grid search of one take, card f32 and CPU f64: (picks
+    agree off near ties, number of near-tie frames, frames)."""
+    import torch
+    from kinpoly_tpu_torch.data import ground_fix as gf
+
+    slots, bodies, max_delta, grid = (
+        (gf.leg_slots(spec), gf.LEG_BODIES, 1.2, 49) if which == "legs"
+        else (gf.arm_slots(spec), gf.ARM_BODIES, 0.9, 25))
+    clearance = 0.005
+    deltas, z_card = gf.grid_min_z(spec, q, slots, bodies, max_delta, grid,
+                                   device=device, dtype=torch.float32)
+    _, z_cpu = gf.grid_min_z(spec, q, slots, bodies, max_delta, grid,
+                             device="cpu", dtype=torch.float64)
+    pick_card = gf.pick_deltas(deltas, z_card, clearance)
+    pick_cpu = gf.pick_deltas(deltas, z_cpu, clearance)
+    margin = np.abs(z_cpu - clearance).min(axis=0)
+    top2 = np.sort(z_cpu, axis=0)[-2:]
+    none_ok = ~(z_cpu >= clearance).any(axis=0)
+    margin = np.where(none_ok, np.minimum(margin, top2[1] - top2[0]), margin)
+    tie = margin <= GROUND_TIE
+    return bool(np.all((pick_card == pick_cpu) | tie)), int(tie.sum()), q.shape[0]
+
+
+def write_amass_npz(root: str, n: int, fps: float, seed: int) -> None:
+    """n seeded upright SMPL-H sequences of 4-8 s at fps, in two
+    subdirectories: the root turned 90 deg about x (the SMPL frame's +y
+    up), every joint on a slow random walk, the root drifting over the
+    floor."""
+    rng = np.random.RandomState(seed)
+    for i in range(n):
+        T = int(fps * rng.uniform(4.0, 8.0))
+        poses = np.zeros((T, 156))
+        poses[:, 0] = np.pi / 2
+        poses[:, :72] += 0.2 * rng.uniform(-1, 1, 72) + np.cumsum(
+            rng.normal(0, 0.01, (T, 72)), axis=0)
+        trans = np.zeros((T, 3))
+        trans[:, :2] = np.cumsum(rng.normal(0, 0.005, (T, 2)), axis=0)
+        trans[:, 2] = 0.92 + 0.02 * np.sin(np.linspace(0, 3, T))
+        sub = os.path.join(root, f"subject{i % 2}")
+        os.makedirs(sub, exist_ok=True)
+        np.savez(os.path.join(sub, f"seq{i}_poses.npz"), poses=poses,
+                 trans=trans, mocap_framerate=fps, betas=rng.randn(16))
+
+
+def viewer_joints(path: str) -> list:
+    """The joints of every sequence in a view_motion HTML's payload."""
+    from kinpoly_tpu_torch.utils.html_viewer import _TEMPLATE
+
+    head, tail = _TEMPLATE.split("__DATA__")
+    with open(path) as f:
+        html = f.read()
+    if not (html.startswith(head) and html.endswith(tail)):
+        fail(f"{path} is not the viewer template around its payload")
+    data = json.loads(html[len(head):len(html) - len(tail)])
+    return [np.asarray(sq["joints"]) for sq in data["seqs"]]
+
+
+def fine_tune_parity(device) -> dict:
+    """The three fine_tune rewards on FT_ENVS seeded envs (off tracking,
+    every third env at its end), card f32 against CPU f64: max abs error
+    over rewards and components, per id."""
+    import torch
+    from kinpoly_tpu_torch.core import tmath
+    from kinpoly_tpu_torch.rl import rewards as rw
+
+    rng = np.random.RandomState(16)
+    n, dt = FT_ENVS, 1.0 / 30
+
+    def quats(k):
+        x = rng.randn(n, k, 4)
+        return (x / np.linalg.norm(x, axis=-1, keepdims=True)).reshape(n, 4 * k)
+
+    prev_h = np.concatenate([rng.randn(n, 3), quats(1)], -1)
+    cur_h = np.concatenate([prev_h[:, :3] + 0.01 * rng.randn(n, 3), quats(1)], -1)
+    hvel = np.concatenate([(cur_h[:, :3] - prev_h[:, :3]) / dt, tmath.angvel_fd(
+        torch.tensor(prev_h[:, 3:]), torch.tensor(cur_h[:, 3:]), dt).numpy()], -1)
+    act = rng.randn(n, 75)
+    raw = dict(head_pose=cur_h, prev_head_pose=prev_h,
+               e_head_pose=np.concatenate([cur_h[:, :3] + 0.1 * rng.randn(n, 3),
+                                           quats(1)], -1),
+               e_head_vel=hvel + 0.3 * rng.randn(n, 6), bquat=quats(23),
+               e_bquat=quats(23), action=act,
+               old_action=act + 0.3 * rng.randn(n, 75),
+               end_reward=np.full(n, 2.0), is_end=np.arange(n) % 3 == 0)
+    ws = dict(w_end=0.5, k_p=2.0)
+    errs = {}
+    for rid in rw.FINE_TUNE_REWARDS:
+        fn = rw.get_kin_poly_reward(rid)
+        out = []
+        for dev, dtype in ((device, torch.float32), ("cpu", torch.float64)):
+            inp = rw.FineTuneInputs(**{
+                k: torch.as_tensor(v, device=dev,
+                                   dtype=torch.bool if v.dtype == bool else dtype)
+                for k, v in raw.items()})
+            r, c = fn(inp, ws, dt)
+            out.append(torch.cat([r[:, None], c], -1).double().cpu())
+        if not bool(torch.isfinite(out[0]).all()):
+            fail(f"non-finite {rid} on the card")
+        errs[rid] = float((out[0] - out[1]).abs().max())
+    return errs
+
+
+def data_phase(device, here: str, takes: dict, records: list,
+               kernels: list) -> None:
+    """Phase 14: the data path on the card against the CPU."""
+    import torch
+    from kinpoly_tpu_torch import native
+    from kinpoly_tpu_torch.anim import mjcf
+    from kinpoly_tpu_torch.anim.spec import synthetic_spec
+    from kinpoly_tpu_torch.data import amass, ground_fix
+    from kinpoly_tpu_torch.data.amass_dataset import AMASSDataset
+    from kinpoly_tpu_torch.data.banks import read_bank
+    from kinpoly_tpu_torch.scripts import view_motion
+
+    native.LAUNCHES.clear()
+    spec = synthetic_spec()
+
+    # (a) grounding
+    tp = time.perf_counter()
+    qs = [np.asarray(q, np.float64) for q in list(takes.values())[:GROUND_TAKES]]
+    rows = []
+    for which in ("legs", "arms"):
+        for q in qs:
+            rows.append(grounding_picks(spec, q, which, device))
+    agree = all(r[0] for r in rows)
+    n_tie, n_frames = sum(r[1] for r in rows), sum(r[2] for r in rows)
+    ground_legs_cpu = [ground_fix.ground_legs(spec, q, device="cpu",
+                                              dtype=torch.float64)[0] for q in qs]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    legs, fixed = [], []
+    for q in qs:
+        legs.append(ground_fix.ground_legs(spec, q, device=device)[0])
+        fixed.append(ground_fix.ground_arms(spec, legs[-1], device=device)[0])
+    torch.cuda.synchronize()
+    ground_ms = (time.perf_counter() - t0) / len(qs) * 1e3
+    lift = [ground_fix.max_root_lift(spec, q, device=device) for q in fixed]
+    q_err = max(float(np.abs(a - b).max()) for a, b in zip(legs, ground_legs_cpu))
+    say("data", f"(a) ground_legs + ground_arms on the first {len(qs)} takes of "
+        f"{CLIPS24} ({qs[0].shape[0]} frames; grids of 49 x T and 25 x T "
+        f"frames through one FK each): {ground_ms:.1f} ms per take on the card; "
+        f"delta picks card f32 vs CPU f64 agree off near ties {agree} "
+        f"({n_tie} near-tie frames of {n_frames}, margin <= {GROUND_TIE}); "
+        f"ground_legs qpos max abs difference {q_err:.3g}; root lift still "
+        f"needed after both " + ", ".join(f"{x:.4f}" for x in lift) + " m", tp)
+    if not agree:
+        fail("the grounding's delta picks differ between card and CPU off near ties")
+    if not all(np.isfinite(q).all() for q in fixed):
+        fail("non-finite grounded qpos")
+
+    # (b) AMASS to takes, the dataset's bank, the MJCF parser
+    tp = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "amass")
+        write_amass_npz(root, AMASS_SEQS, AMASS_FPS, seed=14)
+        out = os.path.join(tmp, "amass_takes.pkl")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tk = amass.process_amass_dir(spec, root, out_path=out, flip_augment=True,
+                                     device=device)
+        torch.cuda.synchronize()
+        amass_ms = (time.perf_counter() - t0) / max(len(tk), 1) * 1e3
+        ref = amass.process_amass_dir(spec, root, flip_augment=True,
+                                      device="cpu", dtype=torch.float64)
+        back = read_bank(out)
+        t0 = time.perf_counter()
+        bank = AMASSDataset(back).to_bank(spec, dt=1 / 30, device=device)
+        torch.cuda.synchronize()
+        bank_ms = (time.perf_counter() - t0) * 1e3
+        spec_o = synthetic_spec(with_objects=True)
+        xml = mjcf.export_global_mjcf(spec_o, os.path.join(tmp, "mjcf"))
+        t0 = time.perf_counter()
+        parsed = mjcf.parse_humanoid(xml)
+        parse_ms = (time.perf_counter() - t0) * 1e3
+    same_keys = sorted(tk) == sorted(ref)
+    a_err = max(float(np.abs(tk[k]["qpos"] - ref[k]["qpos"]).max())
+                for k in ref) if same_keys else float("inf")
+    bank_ok = (sorted(back) == sorted(tk) and all(
+        np.array_equal(back[k]["qpos"], tk[k]["qpos"]) for k in tk)
+        and tuple(bank.qpos.shape) == (len(tk), max(
+            t["qpos"].shape[0] for t in tk.values()), 76)
+        and bool(torch.isfinite(bank.qpos).all()))
+    parse_ok = (parsed.body_names == spec_o.body_names
+                and np.array_equal(parsed.parents, spec_o.parents)
+                and np.allclose(parsed.body_pos, spec_o.body_pos, atol=1e-12)
+                and np.allclose(parsed.jnt_range, spec_o.jnt_range, atol=1e-12)
+                and [o.name for o in parsed.objects] == [o.name for o in spec_o.objects])
+    say("data", f"(b) process_amass_dir on {AMASS_SEQS} seeded sequences at "
+        f"{AMASS_FPS:.0f} Hz with flip_augment: {len(tk)} takes of "
+        f"{sorted(t['qpos'].shape[0] for t in tk.values())} frames, "
+        f"{amass_ms:.1f} ms per take on the card; same takes as CPU f64 "
+        f"{same_keys}, qpos max abs err {a_err:.3g} (tol {DATA_ATOL}); bank "
+        f"read back and AMASSDataset.to_bank {tuple(bank.qpos.shape)} in "
+        f"{bank_ms:.1f} ms: {bank_ok}; parse_humanoid of export_global_mjcf "
+        f"(24 bodies, 24 STLs, 5 objects) {parse_ms:.1f} ms, recovered {parse_ok}", tp)
+    if not same_keys or not a_err <= DATA_ATOL:
+        fail(f"AMASS takes differ from the CPU's (same keys {same_keys}, "
+             f"qpos err {a_err:.3g})")
+    if not bank_ok:
+        fail("the AMASS bank did not read back, or its ExpertClip bank is wrong")
+    if not parse_ok:
+        fail("parse_humanoid did not recover the exported humanoid")
+
+    # (c) view_motion from a bank and from a record
+    tp = time.perf_counter()
+    wild = read_bank(os.path.join(here, WILD))
+    push = next(k for k, v in wild.items() if v.get("action") == "push")
+    v_err, view_ms = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = os.path.join(tmp, f"{AR_ITER:04d}_wild_take0_coverage_full.pkl")
+        with open(rec, "wb") as f:
+            pickle.dump(records[0], f)
+        for args in (["--bank", os.path.join(here, WILD), "--take", push],
+                     ["--result", rec]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card = view_motion.main(args + ["--out", os.path.join(tmp, "card.html"),
+                                            "--device", "cuda"])
+            view_ms.append((time.perf_counter() - t0) * 1e3)
+            cpu = view_motion.main(args + ["--out", os.path.join(tmp, "cpu.html"),
+                                           "--device", "cpu"])
+            jc, jh = viewer_joints(card), viewer_joints(cpu)
+            if [j.shape for j in jc] != [j.shape for j in jh]:
+                fail(f"view_motion {args[0]}: joints {[j.shape for j in jc]} "
+                     f"on the card, {[j.shape for j in jh]} on the CPU")
+            # joints are rounded to 4 decimals: count the rounding steps
+            v_err.append(max(int(np.rint(np.abs(a - b) * 1e4).max())
+                             for a, b in zip(jc, jh)))
+    say("data", f"(c) view_motion --bank {WILD} --take {push} and --result on "
+        f"phase 10's record of {records[0]['action']}: " + ", ".join(
+            f"{ms:.1f} ms" for ms in view_ms) + " per file on the card; payload "
+        f"joints card vs CPU at most " + ", ".join(str(e) for e in v_err)
+        + f" steps of 1e-4 apart (tol {VIEW_STEPS})", tp)
+    if not max(v_err) <= VIEW_STEPS:
+        fail(f"view_motion joints differ from the CPU's by {max(v_err)} "
+             f"rounding steps of 1e-4")
+
+    # (d) the fine_tune rewards
+    tp = time.perf_counter()
+    errs = fine_tune_parity(device)
+    say("data", f"(d) fine_tune rewards on {FT_ENVS} envs, card f32 vs CPU "
+        f"f64, max abs err over reward and components: " + ", ".join(
+            f"{k} {v:.3g}" for k, v in errs.items()) + f" (tol {FT_ATOL}); "
+        f"kernel launches in this phase {dict(native.LAUNCHES)}", tp)
+    if not max(errs.values()) <= FT_ATOL:
+        fail(f"fine_tune rewards differ from the CPU's: {errs}")
+    for k in kernels:
+        k["launches_by_path"]["data"] = native.LAUNCHES.get(k["name"], 0)
+
+
 def main() -> None:
     watchdog = threading.Timer(WATCHDOG_S, _expire)
     watchdog.daemon = True
@@ -1803,6 +2081,9 @@ def main() -> None:
         f"{POSE_ALL_ATOL})", tp)
     if not pose_err <= POSE_ALL_ATOL:
         fail(f"eval_pose_all's mean row differs from phase 10's by {pose_err:.3g}")
+
+    # 14. data: grounding, AMASS, the viewer, the fine_tune rewards ----------
+    data_phase(device, here, takes, ar_eval_records, kernels)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)

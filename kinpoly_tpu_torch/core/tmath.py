@@ -4,7 +4,9 @@ the functions the UHC evaluation path calls).
 Batched over arbitrary leading dims and dtype-preserving. Conventions as in
 the JAX package: quaternions are (w, x, y, z), ``quat_mul(a, b)`` applies b
 first, the heading of a root quaternion zeroes its x/y parts, Euler
-sequences follow the transformations.py encoding.
+sequences follow the transformations.py encoding (all 24 of them, both
+ways: ``quat_from_euler``, ``euler_from_mat``, ``euler_from_quat``). The
+SMPL conversion also reads ``rotation_from_quat_shortest``.
 """
 
 from __future__ import annotations
@@ -98,6 +100,18 @@ def rotation_from_quat(q: torch.Tensor) -> torch.Tensor:
     return torch.where(small, torch.zeros_like(axis), axis * angle)
 
 
+def rotation_from_quat_shortest(q: torch.Tensor) -> torch.Tensor:
+    """Axis*angle with the angle wrapped to (-pi, pi] (the shortest
+    rotation); near-identity quaternions give the zero vector."""
+    w = torch.clamp(q[..., :1], -1.0, 1.0)
+    s = safe_norm(q[..., 1:], eps=1e-9)
+    angle = 2.0 * torch.atan2(s, w)
+    angle = torch.where(angle > math.pi, angle - 2.0 * math.pi, angle)
+    small = (1.0 - torch.abs(w)) < 1e-8
+    axis = torch.where(small, torch.zeros_like(q[..., 1:]), q[..., 1:] / s)
+    return axis * angle
+
+
 def heading_q(q: torch.Tensor) -> torch.Tensor:
     """Zero the x/y parts and renormalise; identity where undefined."""
     zero = torch.zeros_like(q[..., 0])
@@ -138,22 +152,33 @@ def wrap_to_pi(x: torch.Tensor) -> torch.Tensor:
     return x - 2.0 * math.pi * torch.floor((x + math.pi) / (2.0 * math.pi))
 
 
+# Euler sequences in the transformations.py encoding:
+# (firstaxis, parity, repetition, frame)
 _AXES2TUPLE = {
-    "sxyz": (0, 0, 0, 0), "rzyx": (0, 0, 0, 1),
+    "sxyz": (0, 0, 0, 0), "sxyx": (0, 0, 1, 0), "sxzy": (0, 1, 0, 0),
+    "sxzx": (0, 1, 1, 0), "syzx": (1, 0, 0, 0), "syzy": (1, 0, 1, 0),
+    "syxz": (1, 1, 0, 0), "syxy": (1, 1, 1, 0), "szxy": (2, 0, 0, 0),
+    "szxz": (2, 0, 1, 0), "szyx": (2, 1, 0, 0), "szyz": (2, 1, 1, 0),
+    "rzyx": (0, 0, 0, 1), "rxyx": (0, 0, 1, 1), "ryzx": (0, 1, 0, 1),
+    "rxzx": (0, 1, 1, 1), "rxzy": (1, 0, 0, 1), "ryzy": (1, 0, 1, 1),
+    "rzxy": (1, 1, 0, 1), "ryxy": (1, 1, 1, 1), "ryxz": (2, 0, 0, 1),
+    "rzxz": (2, 0, 1, 1), "rxyz": (2, 1, 0, 1), "rzyz": (2, 1, 1, 1),
 }
 _NEXT_AXIS = [1, 2, 0, 1]
 
 
 def quat_from_euler(ai: torch.Tensor, aj: torch.Tensor, ak: torch.Tensor,
                     axes: str = "sxyz") -> torch.Tensor:
-    """Euler angles -> quaternion (the transformations.py algorithm) for
-    the two sequences the humanoid uses: 'sxyz' and 'rzyx'."""
+    """Euler angles -> quaternion (the transformations.py algorithm), for
+    every sequence of ``_AXES2TUPLE``."""
     firstaxis, parity, repetition, frame = _AXES2TUPLE[axes.lower()]
     i = firstaxis + 1
     j = _NEXT_AXIS[i + parity - 1] + 1
     k = _NEXT_AXIS[i - parity] + 1
     if frame:
         ai, ak = ak, ai
+    if parity:
+        aj = -aj
     ai, aj, ak = ai * 0.5, aj * 0.5, ak * 0.5
     ci, si = torch.cos(ai), torch.sin(ai)
     cj, sj = torch.cos(aj), torch.sin(aj)
@@ -161,11 +186,56 @@ def quat_from_euler(ai: torch.Tensor, aj: torch.Tensor, ak: torch.Tensor,
     cc, cs = ci * ck, ci * sk
     sc, ss = si * ck, si * sk
     out = [None] * 4
-    out[0] = cj * cc + sj * ss
-    out[i] = cj * sc - sj * cs
-    out[j] = cj * ss + sj * cc
-    out[k] = cj * cs - sj * sc
+    if repetition:
+        out[0] = cj * (cc - ss)
+        out[i] = cj * (cs + sc)
+        out[j] = sj * (cc + ss)
+        out[k] = sj * (cs - sc)
+    else:
+        out[0] = cj * cc + sj * ss
+        out[i] = cj * sc - sj * cs
+        out[j] = cj * ss + sj * cc
+        out[k] = cj * cs - sj * sc
+    if parity:
+        out[j] = -out[j]
     return torch.stack(out, dim=-1)
+
+
+def euler_from_mat(m: torch.Tensor, axes: str = "sxyz") -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> Euler angles (..., 3) of the same
+    sequence encoding; at gimbal lock (cos or sin of the middle angle under
+    1e-8) the last angle is 0, both branches evaluated and selected by
+    ``torch.where`` as the JAX package does."""
+    firstaxis, parity, repetition, frame = _AXES2TUPLE[axes.lower()]
+    i = firstaxis
+    j = _NEXT_AXIS[i + parity]
+    k = _NEXT_AXIS[i - parity + 1]
+    eps = 1e-8
+    if repetition:
+        sy = torch.sqrt(m[..., i, j] ** 2 + m[..., i, k] ** 2)
+        ok = sy > eps
+        ax = torch.where(ok, torch.atan2(m[..., i, j], m[..., i, k]),
+                         torch.atan2(-m[..., j, k], m[..., j, j]))
+        ay = torch.atan2(sy, m[..., i, i])
+        az = torch.where(ok, torch.atan2(m[..., j, i], -m[..., k, i]),
+                         torch.zeros_like(ax))
+    else:
+        cy = torch.sqrt(m[..., i, i] ** 2 + m[..., j, i] ** 2)
+        ok = cy > eps
+        ax = torch.where(ok, torch.atan2(m[..., k, j], m[..., k, k]),
+                         torch.atan2(-m[..., j, k], m[..., j, j]))
+        ay = torch.atan2(-m[..., k, i], cy)
+        az = torch.where(ok, torch.atan2(m[..., j, i], m[..., i, i]),
+                         torch.zeros_like(ax))
+    if parity:
+        ax, ay, az = -ax, -ay, -az
+    if frame:
+        ax, az = az, ax
+    return torch.stack([ax, ay, az], dim=-1)
+
+
+def euler_from_quat(q: torch.Tensor, axes: str = "sxyz") -> torch.Tensor:
+    return euler_from_mat(quat_to_mat(q), axes)
 
 
 def multi_quat_diff(nq1: torch.Tensor, nq0: torch.Tensor) -> torch.Tensor:

@@ -4,8 +4,10 @@
 inputs (``quat_v2``, ``deep_mimic``, ``local_world_*``, ``world_quat*``, ...)
 and the ``get_uhc_reward`` lookup; and the kin-poly rewards of the AR env
 (``dynamic_supervision_v2``-``_v6``, ``constant``) on ``ARRewardInputs``
-with the ``get_kin_poly_reward`` lookup. The controller fine-tuning ids
-(``fine_tune_*``) are not ported: no trainer builds their inputs.
+with the ``get_kin_poly_reward`` lookup, which also returns the controller
+fine-tuning rewards (``fine_tune_kin_action_reward``,
+``fine_tune_action_reward``, ``fine_tune_reward``) on ``FineTuneInputs``;
+no trainer builds those inputs, in either package.
 
 Every reward is a function of a ``RewardInputs`` bundle and the weight dict
 ``ws`` (the env config's fields), batched over leading dims, and returns
@@ -602,6 +604,109 @@ def constant_reward(inp: ARRewardInputs, ws: dict, dt: float):
     return one, one[..., None]
 
 
+# ---------------------------------------------------------------------------
+# fine_tune family: UHC-controller fine-tuning under egocentric head
+# supervision (kinpoly_tpu/rl/rewards.py:610-696): head tracking against the
+# expert's head pose and velocity, plus an action term toward the
+# pre-fine-tune policy's action
+# ---------------------------------------------------------------------------
+
+
+class FineTuneInputs(NamedTuple):
+    """What the fine_tune_* rewards consume, batched (..., d)."""
+    head_pose: torch.Tensor        # (..., 7) simulated head, world frame
+    prev_head_pose: torch.Tensor   # (..., 7) the control step before
+    e_head_pose: torch.Tensor      # (..., 7) expert head pose at this frame
+    e_head_vel: torch.Tensor       # (..., 6) expert head velocity (lin + ang)
+    bquat: torch.Tensor            # (..., 92) non-root body quats
+    e_bquat: torch.Tensor = None   # (..., 92) from the kinematic pose
+    action: torch.Tensor = None
+    old_action: torch.Tensor = None  # the frozen pre-fine-tune policy's action
+    end_reward: torch.Tensor | float = 0.0   # the env's end reward
+    is_end: torch.Tensor | bool = False      # per env: the episode ended
+
+
+def _where_end(inp: FineTuneInputs, ref: torch.Tensor, if_end, otherwise):
+    """where(is_end, if_end, otherwise) on ref's device and dtype; scalars
+    broadcast, as jnp.where's do."""
+    t = lambda x: torch.as_tensor(x, dtype=ref.dtype, device=ref.device)
+    return torch.where(torch.as_tensor(inp.is_end, device=ref.device),
+                       t(if_end), t(otherwise))
+
+
+def _end_reward(inp: FineTuneInputs, ref: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(inp.end_reward, dtype=ref.dtype, device=ref.device)
+
+
+def _fine_tune_head_terms(inp: FineTuneInputs, ws: dict, dt: float):
+    """Head position, orientation and velocity terms, shared by the three."""
+    k_rp, k_rq = ws.get("k_rp", 1.0), ws.get("k_rq", 1.0)
+    k_v = ws.get("k_v", 0.1)
+    hp_r = _exp(k_rp, _norm(inp.head_pose[..., :3] - inp.e_head_pose[..., :3]))
+    hq_d = torch.linalg.norm(multi_quat_norm_v2(tmath.multi_quat_diff(
+        inp.head_pose[..., 3:], inp.e_head_pose[..., 3:])), dim=-1)
+    hq_r = _exp(k_rq, hq_d)
+    hpvel = (inp.head_pose[..., :3] - inp.prev_head_pose[..., :3]) / dt
+    hqvel = tmath.angvel_fd(inp.prev_head_pose[..., 3:],
+                            inp.head_pose[..., 3:], dt)
+    hvel_r = torch.exp(-_norm(hpvel - inp.e_head_vel[..., :3])
+                       - k_v * _norm(hqvel - inp.e_head_vel[..., 3:]))
+    return hp_r, hq_r, hvel_r
+
+
+def _fine_tune_pose_action(inp: FineTuneInputs, ws: dict):
+    k_a, k_p = ws.get("k_a", 1.0), ws.get("k_p", 1.0)
+    action_r = _exp(k_a, _norm(inp.action - inp.old_action))
+    pose_d = torch.linalg.norm(multi_quat_norm_v2(
+        tmath.multi_quat_diff(inp.bquat, inp.e_bquat)), dim=-1)
+    return action_r, _exp(k_p, pose_d)
+
+
+def fine_tune_kin_action_reward(inp: FineTuneInputs, ws: dict, dt: float):
+    """Weighted sum of the head, pose and action terms; the end bonus
+    (w_end 0 by default) adds."""
+    w_rp, w_rq = ws.get("w_rp", 1.0), ws.get("w_rq", 1.0)
+    w_a, w_p, w_v = ws.get("w_a", 0.05), ws.get("w_p", 1.0), ws.get("w_v", 1.0)
+    w_end = ws.get("w_end", 0.0)
+    hp_r, hq_r, hvel_r = _fine_tune_head_terms(inp, ws, dt)
+    action_r, pose_r = _fine_tune_pose_action(inp, ws)
+    reward = (w_rp * hp_r + w_rq * hq_r + w_v * hvel_r + w_p * pose_r
+              + w_a * action_r) / (w_rp + w_rq + w_v + w_p + w_a)
+    reward = reward + _where_end(inp, reward, w_end * _end_reward(inp, reward), 0.0)
+    return reward, torch.stack([hp_r, hq_r, hvel_r, pose_r, action_r], dim=-1)
+
+
+def fine_tune_action_reward(inp: FineTuneInputs, ws: dict, dt: float):
+    """Multiplicative head tracking plus the action term; the end bonus
+    (w_end 1 by default) adds."""
+    w_a, w_end = ws.get("w_a", 0.05), ws.get("w_end", 1.0)
+    k_a = ws.get("k_a", 1.0)
+    hp_r, hq_r, hvel_r = _fine_tune_head_terms(inp, ws, dt)
+    action_r = _exp(k_a, _norm(inp.action - inp.old_action))
+    reward = hp_r * hq_r * hvel_r + w_a * action_r
+    reward = reward + _where_end(inp, reward, w_end * _end_reward(inp, reward), 0.0)
+    return reward, torch.stack([hp_r, hq_r, hvel_r, action_r], dim=-1)
+
+
+def fine_tune_reward(inp: FineTuneInputs, ws: dict, dt: float):
+    """Multiplicative head and pose tracking; the end bonus multiplies."""
+    hp_r, hq_r, hvel_r = _fine_tune_head_terms(inp, ws, dt)
+    k_p = ws.get("k_p", 1.0)
+    pose_d = torch.linalg.norm(multi_quat_norm_v2(
+        tmath.multi_quat_diff(inp.bquat, inp.e_bquat)), dim=-1)
+    pose_r = _exp(k_p, pose_d)
+    reward = hp_r * hq_r * hvel_r * pose_r
+    reward = reward * _where_end(inp, reward, _end_reward(inp, reward), 1.0)
+    return reward, torch.stack([hp_r, hq_r, hvel_r, pose_r], dim=-1)
+
+
+# they run on FineTuneInputs, not ARRewardInputs
+FINE_TUNE_REWARDS: dict[str, Callable] = {
+    "fine_tune_kin_action_reward": fine_tune_kin_action_reward,
+    "fine_tune_action_reward": fine_tune_action_reward,
+    "fine_tune_reward": fine_tune_reward,
+}
+
 KIN_POLY_REWARDS: dict[str, Callable] = {
     "dynamic_supervision_v2": dynamic_supervision_v2,
     "dynamic_supervision_v3": dynamic_supervision_v3,
@@ -611,18 +716,12 @@ KIN_POLY_REWARDS: dict[str, Callable] = {
     "constant": constant_reward,
 }
 
-# the controller fine-tuning rewards of the kin-poly registry: no trainer
-# builds their inputs
-FINE_TUNE_IDS = frozenset(("fine_tune_kin_action_reward",
-                           "fine_tune_action_reward", "fine_tune_reward"))
-
 
 def get_kin_poly_reward(reward_id: str) -> Callable:
-    """A kin-poly reward by id, as the JAX lookup: an imitation id is the
-    UHC env's, not the AR env's."""
-    if reward_id in FINE_TUNE_IDS:
-        raise KeyError(f"kin-poly reward_id {reward_id!r} is a controller "
-                       f"fine-tuning reward, which the port does not have")
+    """A kin-poly reward by id, as the JAX lookup: a fine_tune id gives its
+    reward, an imitation id is the UHC env's, not the AR env's."""
+    if reward_id in FINE_TUNE_REWARDS:
+        return FINE_TUNE_REWARDS[reward_id]
     if reward_id in LEGACY_IMITATION_REWARDS:
         raise KeyError(
             f"kin-poly reward_id {reward_id!r} is an imitation reward; "

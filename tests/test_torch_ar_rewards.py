@@ -88,18 +88,25 @@ def test_kin_poly_reward_formulas(rid, weights):
 @pytest.mark.parametrize("rid", ["quat_v2", "deep_mimic", "nonexistent",
                                  "dynamic_supervision_v1"])
 def test_kin_poly_registry_errors(rid):
-    """The same KeyError, message included; the fine-tune ids, which the
-    JAX registry has, raise in the port."""
+    """The same KeyError, message included; the fine-tune ids resolve in
+    both registries, to the port's fine_tune functions, which give the
+    JAX functions' results (tests/test_torch_fine_tune.py)."""
+    from test_torch_fine_tune import fine_tune_inputs
+
     with pytest.raises(KeyError) as ej:
         jrw.get_kin_poly_reward(rid)
     with pytest.raises(KeyError) as et:
         trw.get_kin_poly_reward(rid)
     assert str(ej.value) == str(et.value)
     assert sorted(trw.KIN_POLY_REWARDS) == sorted(jrw.KIN_POLY_REWARDS)
-    for rid in trw.FINE_TUNE_IDS:
-        assert callable(jrw.get_kin_poly_reward(rid))
-        with pytest.raises(KeyError, match="fine-tuning"):
-            trw.get_kin_poly_reward(rid)
+    assert sorted(trw.FINE_TUNE_REWARDS) == sorted(jrw.FINE_TUNE_REWARDS)
+    jin, tin = fine_tune_inputs(np.random.RandomState(4), 8, perfect=False)
+    for ft in trw.FINE_TUNE_REWARDS:
+        assert trw.get_kin_poly_reward(ft) is trw.FINE_TUNE_REWARDS[ft]
+        rj, cj = jrw.get_kin_poly_reward(ft)(jin, {}, 1.0 / 30)
+        rt, ct = trw.get_kin_poly_reward(ft)(tin, {}, 1.0 / 30)
+        _close(rj, rt, TOL)
+        _close(cj, ct, TOL)
 
 
 @pytest.fixture(scope="module")

@@ -70,3 +70,12 @@ def test_ar_training_modules_are_covered():
     for mod in ("utils/liveness.py", "rl/optim.py", "rl/agent_ar.py",
                 "scripts/train_ar_policy.py", "scripts/exp_arnet.py"):
         assert ROOT / "kinpoly_tpu_torch" / mod in FILES, mod
+
+
+def test_data_path_modules_are_covered():
+    """The data path's modules (parsers, SMPL and AMASS, grounding, the
+    viewer) are among the files scanned above."""
+    for mod in ("anim/stl.py", "anim/mjcf.py", "anim/smpl.py", "data/amass.py",
+                "data/amass_dataset.py", "data/ground_fix.py",
+                "utils/html_viewer.py", "scripts/view_motion.py"):
+        assert ROOT / "kinpoly_tpu_torch" / mod in FILES, mod
