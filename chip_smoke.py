@@ -144,6 +144,29 @@ Phases, one line each with its seconds:
               rounding step from the CPU's; ms per file;
               (d) the three fine_tune rewards on 1024 seeded envs, card
               f32 against CPU f64 within 1e-5
+ 15. zoo      the rest of anim, the model zoo, TRPO and A2C (no kernel on
+              it; the counters are read and stay 0): (a) lbs of
+              synthetic_model at SMPL's 6890 vertices on 150 seeded frames,
+              vertices and joints card f32 within 1e-4 m of CPU f64; ms per
+              frame; (b) fit_qpos, 300 Adam steps from standing_pose on the
+              FK targets of a 150-frame seeded take (tests/test_retarget.py's
+              perturbation, lr and smoothness weight): mean joint error under
+              3 cm, qpos finite; s per take; (c) body_occupancy at voxel_num
+              16, every body of a standing pose against each of the five
+              synthetic objects: card voxels equal the CPU's off the voxels
+              within 1e-5 of a geom face, which are counted; (d) every zoo
+              net at its default widths (the image encoders on 8 frames of
+              64 x 64, VideoRegNet on 2 x 16 frames, SpaceNet on 16^3
+              voxels, the sequence nets on (4, 32, 128)) with flax's
+              initialisation, card f32 within 1e-3 of CPU f64 relative to
+              the output's scale, also one train=True BatchNorm pass and its
+              statistics; the moments of SpaceNet's sampled z and
+              categorical_sample's frequencies; ms per forward; (e) one
+              trpo_update and one a2c_update of a PolicyGaussian and Value at
+              uhc.yml's (512, 256) on 8192 seeded samples: TRPO accepted,
+              the surrogate improved, its new parameters within 1e-3 of CPU
+              f64; A2C's losses and gradients within 1e-3 relative (its new
+              parameters' difference reported); ms per update
 Then a JSON line with every kernel's numbers, the card's nvidia-smi line,
 and as the last line {"ok": true, "device": {...}}. Any failure exits
 non-zero before that line; a watchdog ends the run past 10 minutes.
@@ -218,6 +241,17 @@ AMASS_SEQS, AMASS_FPS = 6, 120.0      # seeded AMASS sequences of 4-8 s
 DATA_ATOL = 1e-4                      # AMASS qpos, card f32 vs CPU f64
 VIEW_STEPS = 1                        # viewer joints: 4-decimal rounding steps apart
 FT_ENVS, FT_ATOL = 1024, 1e-5         # fine_tune rewards, card f32 vs CPU f64
+# the zoo phase
+ZOO_FRAMES = 150                      # LBS and fit_qpos: one 150-frame take
+SMPL_V = 6890                         # SMPL's vertex count
+LBS_ATOL = 1e-4                       # vertices and joints (m), card f32 vs CPU f64
+FIT_ITERS, FIT_LR, FIT_SMOOTH = 300, 0.03, 0.01   # tests/test_retarget.py's fit
+FIT_ERR = 0.03                        # mean joint error (m), tests/test_retarget.py:30
+OCC_VOXELS, OCC_TIE = 16, 1e-5        # occupancy grid; a voxel this near a face is a tie
+ZOO_RTOL = 1e-3                       # zoo nets, card f32 vs CPU f64, / max |output|
+ZOO_IMAGES, ZOO_SEQ = 8, (4, 32, 128)  # 64 x 64 frames; (B, T, D) sequences
+ROLLOUT_SAMPLES = 8192                # one UHC rollout: 1024 envs x 8 control steps
+RL_ATOL = 1e-3                        # TRPO parameters, A2C gradients, f32 vs f64
 T0 = time.perf_counter()
 
 
@@ -1327,6 +1361,322 @@ def data_phase(device, here: str, takes: dict, records: list,
         k["launches_by_path"]["data"] = native.LAUNCHES.get(k["name"], 0)
 
 
+def rel_err(card, ref) -> float:
+    """max |card - ref| over max |ref| (the plain difference where ref is
+    all zero)."""
+    import torch
+    ref = ref.detach().double().cpu()
+    err = float((card.detach().double().cpu() - ref).abs().max())
+    scale = float(ref.abs().max())
+    return err / scale if scale > 0 else err
+
+
+def zoo_nets():
+    """(name, net, input shape, takes train) of every zoo net at its
+    default widths."""
+    from kinpoly_tpu_torch.models import aux_nets as an
+    B, T, D = ZOO_SEQ
+    img = (ZOO_IMAGES, 64, 64, 3)
+    return [
+        ("ResNet18", an.ResNet18(3), img, True),
+        ("MobileNet", an.MobileNet(3), img, True),
+        ("SimpleCNN", an.SimpleCNN(3), img, False),
+        ("VideoRegNet", an.VideoRegNet(3, 76), (2, 16, 64, 64, 3), True),
+        ("SpaceNet", an.SpaceNet(), (ZOO_IMAGES, 16, 16, 16, 1), False),
+        ("TCN", an.TCN(D), (B, T, D), False),
+        ("ERDNet", an.ERDNet(D, 76), (B, T, D), False),
+        ("CMLP", an.CMLP(D, 76), (B, T, D), False),
+        ("Discriminator", an.Discriminator(D), (B, T, D), False),
+        ("VideoStateNet", an.VideoStateNet(D), (B, T, D), False),
+        ("VideoForecastNet", an.VideoForecastNet(D), (B, T, D), False),
+        ("PolicyDiscrete", an.PolicyDiscrete(D, 8), (B, T, D), False),
+    ]
+
+
+def zoo_phase(device, kernels: list) -> None:
+    """Phase 15: the rest of anim, the model zoo, TRPO and A2C on the card
+    against the CPU."""
+    import copy
+
+    import torch
+    from kinpoly_tpu_torch import native
+    from kinpoly_tpu_torch.anim import occupancy, retarget, smpl_model
+    from kinpoly_tpu_torch.anim.spec import (spec_tensors, standing_pose,
+                                             synthetic_spec)
+    from kinpoly_tpu_torch.models import aux_nets, weights
+    from kinpoly_tpu_torch.physics import contact as ct
+    from kinpoly_tpu_torch.physics import fk as fklib
+
+    native.LAUNCHES.clear()
+    f64 = dict(device="cpu", dtype=torch.float64)
+    f32 = dict(device=device, dtype=torch.float32)
+
+    # (a) LBS at SMPL's sizes
+    tp = time.perf_counter()
+    model = smpl_model.synthetic_model(np.random.RandomState(15), V=SMPL_V)
+    rng = np.random.RandomState(16)
+    inputs = (rng.randn(ZOO_FRAMES, 10), rng.uniform(-0.5, 0.5, (ZOO_FRAMES, 72)),
+              rng.randn(ZOO_FRAMES, 3))
+    st = smpl_model.smpl_tensors(model, torch.float32, device)
+    card_in = [torch.tensor(x, **f32) for x in inputs]
+    lbs_ms = cuda_ms(lambda: smpl_model.lbs(st, *card_in), 5) / ZOO_FRAMES
+    v_card, j_card = smpl_model.lbs(st, *card_in)
+    v_cpu, j_cpu = smpl_model.lbs(model, *(torch.tensor(x, **f64) for x in inputs))
+    v_err = float((v_card.double().cpu() - v_cpu).abs().max())
+    j_err = float((j_card.double().cpu() - j_cpu).abs().max())
+    say("zoo", f"(a) lbs of synthetic_model(V={SMPL_V}, 10 betas, 207 pose "
+        f"blendshapes) on {ZOO_FRAMES} seeded frames: {lbs_ms:.4f} ms per frame "
+        f"on the card; card f32 vs CPU f64 max abs err vertices {v_err:.3g}, "
+        f"joints {j_err:.3g} m (tol {LBS_ATOL})", tp)
+    if not (v_err <= LBS_ATOL and j_err <= LBS_ATOL):
+        fail(f"lbs differs from the CPU's: vertices {v_err:.3g}, joints {j_err:.3g}")
+
+    # (b) fit_qpos on a 150-frame take
+    tp = time.perf_counter()
+    spec = synthetic_spec()
+    standing, _ = standing_pose(spec)
+    rng = np.random.RandomState(17)
+    q_true = np.repeat(standing[None], ZOO_FRAMES, 0)
+    q_true[:, 7:] += rng.uniform(-0.2, 0.2, (ZOO_FRAMES, 69))
+    q_true[:, :2] += rng.uniform(-0.2, 0.2, (ZOO_FRAMES, 2))
+    target = fklib.fk(spec_tensors(spec, torch.float32, device),
+                      torch.tensor(q_true, **f32)).xpos
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit = retarget.fit_qpos(spec, target, standing, iters=FIT_ITERS, lr=FIT_LR,
+                            w_smooth=FIT_SMOOTH)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_err = float(fit.jpos_err.mean())
+    fit_ok = bool(torch.isfinite(fit.qpos).all()) and bool(torch.isfinite(fit.loss))
+    say("zoo", f"(b) fit_qpos, {FIT_ITERS} Adam steps (lr {FIT_LR}, w_smooth "
+        f"{FIT_SMOOTH}) from standing_pose on a {ZOO_FRAMES}-frame take (FK "
+        f"targets of seeded qpos, hinges and root xy +-0.2): {fit_s:.2f} s per "
+        f"take on the card; mean joint error {fit_err * 100:.2f} cm (bound "
+        f"{FIT_ERR * 100:.0f} cm), last loss {float(fit.loss):.3g}, finite {fit_ok}", tp)
+    if not (fit_err < FIT_ERR and fit_ok):
+        fail(f"fit_qpos: mean joint error {fit_err:.4f} m, finite {fit_ok}")
+
+    # (c) body occupancy
+    tp = time.perf_counter()
+    spec_o = synthetic_spec(with_objects=True)
+    scene = ct.scene_from_spec(spec_o)
+    n_obj = len(spec_o.objects)
+    rng = np.random.RandomState(18)
+    oq = rng.randn(n_obj, 4)
+    oq /= np.linalg.norm(oq, axis=-1, keepdims=True)
+    obj_qpos = np.concatenate([standing[None, :3] + rng.uniform(-0.4, 0.4, (n_obj, 3)),
+                               oq], axis=-1)
+    bodies = np.arange(spec_o.n_bodies)
+    n_vox = n_tie = n_bad = 0
+    occ_ms = []
+    for obj in range(n_obj):
+        args = (torch.tensor(standing, **f32), torch.tensor(obj_qpos, **f32), bodies, obj)
+        occ_ms.append(cuda_ms(lambda: occupancy.body_occupancy(
+            spec_o, scene, *args, voxel_num=OCC_VOXELS), 3))
+        card = occupancy.body_occupancy(spec_o, scene, *args,
+                                        voxel_num=OCC_VOXELS).cpu().numpy()
+        cpu = [occupancy.body_occupancy(
+            spec_o, scene._replace(size=scene.size + d), torch.tensor(standing, **f64),
+            torch.tensor(obj_qpos, **f64), bodies, obj, voxel_num=OCC_VOXELS).numpy()
+            for d in (0.0, -OCC_TIE, OCC_TIE)]
+        tie = cpu[1] != cpu[2]          # within OCC_TIE of a face
+        n_vox += int(cpu[0].sum())
+        n_tie += int(tie.sum())
+        n_bad += int(((card != cpu[0]) & ~tie).sum())
+    say("zoo", f"(c) body_occupancy at voxel_num {OCC_VOXELS}, all "
+        f"{spec_o.n_bodies} bodies of a standing body against each of the "
+        f"{n_obj} objects: " + ", ".join(f"{m:.2f}" for m in occ_ms)
+        + f" ms per object on the card; {n_vox} occupied voxels, card f32 vs "
+        f"CPU f64 differ on {n_bad} voxels off the {n_tie} within {OCC_TIE} "
+        f"of a geom face", tp)
+    if n_bad:
+        fail(f"body_occupancy: {n_bad} voxels differ from the CPU's off near ties")
+    if not n_vox:
+        fail("body_occupancy: no object overlaps any body's grid")
+
+    # (d) the zoo nets at their default widths
+    tp = time.perf_counter()
+    gen = torch.Generator().manual_seed(19)
+    rows, worst = [], 0.0
+    for name, net, shape, bn in zoo_nets():
+        aux_nets.init_flax_(net, gen)
+        cpu_net = net.double()
+        card_net = copy.deepcopy(cpu_net).to(device=device, dtype=torch.float32)
+        x = np.random.RandomState(len(rows)).randn(*shape)
+        if name == "SpaceNet":
+            x = (x > 0.5).astype(np.float64)
+        xc, xg = torch.tensor(x, **f64), torch.tensor(x, **f32)
+        with torch.no_grad():
+            out_cpu, out_card = cpu_net(xc), card_net(xg)
+            errs = [rel_err(a, b) for a, b in zip(
+                out_card if isinstance(out_card, tuple) else (out_card,),
+                out_cpu if isinstance(out_cpu, tuple) else (out_cpu,))]
+            ms = cuda_ms(lambda: card_net(xg), 5)
+            if bn:          # one train=True BatchNorm update from the same stats
+                errs.append(rel_err(card_net(xg, True), cpu_net(xc, True)))
+                for (_, a), (_, b) in zip(card_net.named_buffers(),
+                                          cpu_net.named_buffers()):
+                    errs.append(rel_err(a, b))
+        worst = max(worst, max(errs))
+        rows.append(f"{name} {tuple(shape)} {ms:.2f} ms err {max(errs):.2g}")
+    zs_ok, cat_ok, zs_m, cat_d = zoo_draws(device)
+    say("zoo", "(d) zoo nets at default widths, flax initialisation drawn by "
+        "init_flax_, card f32 vs CPU f64 relative to max |output| (forward, "
+        "and for the BatchNorm nets one train=True pass and its updated "
+        "statistics): " + "; ".join(rows) + f" (tol {ZOO_RTOL}); SpaceNet's "
+        f"sampled z: standardised mean {zs_m[0]:.4f}, std {zs_m[1]:.4f}; "
+        f"categorical_sample frequencies max |freq - softmax| {cat_d:.4f}", tp)
+    if not worst <= ZOO_RTOL:
+        fail(f"a zoo net differs from the CPU's by {worst:.3g} of its scale")
+    if not (zs_ok and cat_ok):
+        fail(f"draws off their targets: SpaceNet z {zs_m}, categorical {cat_d}")
+
+    # (e) TRPO and A2C at uhc.yml's widths on one rollout's samples
+    tp = time.perf_counter()
+    ck = weights.load_uhc_checkpoint(UHC_CKPT)
+    obs_dim = ck["value"]["mlp.layers.0.weight"].shape[1]
+    # the primitive bank's last layer (256 wide in) gives the action width
+    act_dim = next(v.shape[-1] for k, v in ck["policy"].items()
+                   if k.startswith("bank.w_") and v.shape[1] == 256)
+    rl = rl_phase(device, obs_dim, act_dim)
+    say("zoo", f"(e) trpo_update and a2c_update, PolicyGaussian and Value "
+        f"(512, 256) at obs {obs_dim}, action {act_dim}, on {ROLLOUT_SAMPLES} "
+        f"samples: TRPO {rl['trpo_ms']:.1f} ms, accepted {rl['accepted']}, "
+        f"surrogate {rl['loss0']:.5f} -> {rl['loss1']:.5f}, lm {rl['lm']:.4g} "
+        f"(CPU f64 {rl['lm_cpu']:.4g}); A2C {rl['a2c_ms']:.1f} ms, losses "
+        f"{rl['a2c_losses']}; card f32 vs CPU f64: TRPO's new parameters max "
+        f"abs err {rl['trpo_err']:.3g} (tol {RL_ATOL}); A2C's losses and "
+        f"gradients relative err {rl['a2c_loss_err']:.3g}, {rl['a2c_grad_err']:.3g} "
+        f"(tol {RL_ATOL}), its new parameters max abs err {rl['a2c_err']:.3g} "
+        f"(reported: Adam's first step moves a parameter by +-lr whatever its "
+        f"gradient's size, so a gradient under float32's noise may step the "
+        f"other way)", tp)
+    if not (rl["accepted"] and rl["loss1"] < rl["loss0"]):
+        fail(f"TRPO step not accepted or surrogate not improved: {rl}")
+    if not all(np.isfinite(v) for v in rl["a2c_losses"] + [rl["loss0"], rl["loss1"]]):
+        fail(f"non-finite RL losses: {rl}")
+    if not (rl["trpo_err"] <= RL_ATOL and rl["a2c_grad_err"] <= RL_ATOL
+            and rl["a2c_loss_err"] <= RL_ATOL):
+        fail(f"RL updates differ from the CPU's: TRPO {rl['trpo_err']:.3g}, "
+             f"A2C gradients {rl['a2c_grad_err']:.3g}, losses {rl['a2c_loss_err']:.3g}")
+
+    # (f) no kernel lies on this path
+    launched = dict(native.LAUNCHES)
+    say("zoo", f"(f) kernel launches in this phase {launched}", tp)
+    if launched:
+        fail(f"the zoo phase launched kernels: {launched}")
+    for k in kernels:
+        k["launches_by_path"]["zoo"] = native.LAUNCHES.get(k["name"], 0)
+
+
+def zoo_draws(device):
+    """SpaceNet's z (standardised by its mean and scale) and
+    categorical_sample's frequencies, drawn on the card."""
+    import torch
+    from kinpoly_tpu_torch.models import aux_nets
+
+    net = aux_nets.SpaceNet(voxel_num=8).to(device)
+    aux_nets.init_flax_(net, torch.Generator(device=device).manual_seed(20))
+    vox = (torch.rand(4096, 8, 8, 8, 1, device=device,
+                      generator=torch.Generator(device=device).manual_seed(21)) < 0.3
+           ).float()
+    zs = []
+    hook = net.dec_in.register_forward_hook(lambda m, i, o: zs.append(i[0]))
+    with torch.no_grad():
+        _, mu, logvar = net(vox, generator=torch.Generator(device=device).manual_seed(22))
+    hook.remove()
+    eps = ((zs[0] - mu) / torch.exp(0.5 * logvar)).double()
+    zs_m = (float(eps.mean()), float(eps.std()))
+    logits = torch.randn(5, device=device, generator=torch.Generator(
+        device=device).manual_seed(23)) * 1.5
+    n = 1_000_000
+    draws = aux_nets.categorical_sample(torch.Generator(device=device).manual_seed(24),
+                                        logits.expand(n, 5))
+    freq = torch.bincount(draws, minlength=5).double() / n
+    cat_d = float((freq - torch.softmax(logits.double(), -1)).abs().max())
+    return (abs(zs_m[0]) < 0.01 and abs(zs_m[1] - 1) < 0.01,
+            cat_d < 5 * 0.5 / np.sqrt(n), zs_m, cat_d)
+
+
+def rl_phase(device, obs_dim: int, act_dim: int) -> dict:
+    """One trpo_update and one a2c_update on the card and on the CPU in
+    float64 from the same seeded nets and samples."""
+    import copy
+
+    import torch
+    from kinpoly_tpu_torch.models import nets
+    from kinpoly_tpu_torch.rl import a2c, trpo
+
+    gen = torch.Generator().manual_seed(25)
+    pol = nets.init_flax_(nets.PolicyGaussian(obs_dim, act_dim), gen).double()
+    val = nets.init_flax_(nets.Value(obs_dim), gen).double()
+    rng = np.random.RandomState(26)
+    obs = torch.tensor(rng.randn(ROLLOUT_SAMPLES, obs_dim))
+    with torch.no_grad():
+        mean, log_std = pol(obs)
+    actions = mean + torch.exp(log_std) * torch.tensor(rng.randn(ROLLOUT_SAMPLES, act_dim))
+    adv = torch.tensor(rng.randn(ROLLOUT_SAMPLES))
+    ret = torch.tensor(rng.randn(ROLLOUT_SAMPLES))
+    flp = nets.gaussian_log_prob(actions, mean, log_std)
+    data = (obs, actions, adv, flp)
+    out = {}
+    res = {}
+    for where in ("cpu", "card"):
+        p, v = copy.deepcopy(pol), copy.deepcopy(val)
+        if where == "card":
+            p, v = p.to(device, torch.float32), v.to(device, torch.float32)
+        p_a2c = copy.deepcopy(p)          # A2C starts from the same nets as TRPO
+        d = [t.to(p.head.weight) for t in data]
+        cfg = trpo.TRPOConfig()
+        step = lambda: trpo.trpo_update(p, cfg, dict(p.named_parameters()), *d)
+        if where == "card":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        new, info = step()
+        if where == "card":
+            torch.cuda.synchronize()
+            out["trpo_ms"] = (time.perf_counter() - t0) * 1e3
+        with torch.no_grad():
+            for k, t in new.items():
+                p.get_parameter(k).copy_(t)
+            m1, s1 = p(d[0])
+            lp1 = nets.gaussian_log_prob(d[1], m1, s1)
+            loss1 = float(-torch.mean(torch.exp(lp1 - d[3]) * d[2]))
+        p = p_a2c
+        opts = [torch.optim.Adam(n.parameters(), lr=1e-3, eps=1e-8) for n in (p, v)]
+        if where == "card":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        a2 = a2c.a2c_update(p, v, opts[0], opts[1], d[0], d[1], d[2],
+                            ret.to(d[0]), l2_reg=1e-3)
+        if where == "card":
+            torch.cuda.synchronize()
+            out["a2c_ms"] = (time.perf_counter() - t0) * 1e3
+        # Adam's first moment after one step is (1 - b1) g: the gradients
+        # (each net's flattened, held against the net's largest component)
+        grads = [torch.cat([opt.state[t]["exp_avg"].double().cpu().flatten() / 0.1
+                            for t in n.parameters()]) for opt, n in zip(opts, (p, v))]
+        res[where] = dict(info=info, loss1=loss1, a2=a2, trpo=new, grads=grads,
+                          params=[t.detach().double().cpu() for t in
+                                  list(p.parameters()) + list(v.parameters())])
+    card, cpu = res["card"], res["cpu"]
+    out.update(
+        accepted=bool(card["info"]["accepted"]) and bool(cpu["info"]["accepted"]),
+        loss0=float(card["info"]["loss0"]), loss1=card["loss1"],
+        lm=float(card["info"]["lm"]), lm_cpu=float(cpu["info"]["lm"]),
+        a2c_losses=[float(card["a2"][k]) for k in ("policy_loss", "value_loss")],
+        trpo_err=max(float((card["trpo"][k].double().cpu() - cpu["trpo"][k]).abs().max())
+                     for k in cpu["trpo"]),
+        a2c_err=max(float((a - b).abs().max())
+                    for a, b in zip(card["params"], cpu["params"])),
+        a2c_grad_err=max(rel_err(a, b) for a, b in zip(card["grads"], cpu["grads"])),
+        a2c_loss_err=max(abs(float(card["a2"][k]) - float(cpu["a2"][k]))
+                         / max(abs(float(cpu["a2"][k])), 1e-12)
+                         for k in ("policy_loss", "value_loss")))
+    return out
+
+
 def main() -> None:
     watchdog = threading.Timer(WATCHDOG_S, _expire)
     watchdog.daemon = True
@@ -2084,6 +2434,9 @@ def main() -> None:
 
     # 14. data: grounding, AMASS, the viewer, the fine_tune rewards ----------
     data_phase(device, here, takes, ar_eval_records, kernels)
+
+    # 15. zoo: LBS, retargeting, occupancy, the model zoo, TRPO and A2C ------
+    zoo_phase(device, kernels)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)

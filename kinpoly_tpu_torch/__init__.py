@@ -3,7 +3,11 @@
 The JAX package ``kinpoly_tpu`` stays the reference; this package mirrors it
 module for module in PyTorch, with hand-written CUDA kernels (``csrc/``) in
 place of its Pallas TPU kernels. It imports torch, numpy and the standard
-library only.
+library only (scipy inside the SMPL archive reader, for a sparse
+regressor). Two JAX modules have no counterpart: ``parallel/mesh.py``, the
+data parallelism of the AR and UHC updates, is still to port;
+``utils/visualizer.py`` is MuJoCo's renderer, which the port does not
+import (``utils/html_viewer.py`` views a motion instead).
 """
 
 import torch

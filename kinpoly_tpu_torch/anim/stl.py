@@ -34,6 +34,12 @@ def read_stl(path) -> tuple[np.ndarray, np.ndarray]:
     if 84 + 50 * ntri > len(data):
         raise ValueError(f"{path}: {ntri} triangles need {84 + 50 * ntri} "
                          f"bytes, the file has {len(data)}")
+    return parse_binary_stl(data, ntri)
+
+
+def parse_binary_stl(data: bytes, ntri: int) -> tuple[np.ndarray, np.ndarray]:
+    """The `ntri` triangles of a binary STL buffer -> (verts, faces) in the
+    first-occurrence vertex order."""
     rec = np.frombuffer(data, dtype=np.uint8, count=ntri * 50, offset=84)
     corners = rec.reshape(ntri, 50)[:, 12:48].copy().view("<u4").reshape(-1, 3)
     _, first, inv = np.unique(corners, axis=0, return_index=True,

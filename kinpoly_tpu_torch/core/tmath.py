@@ -6,7 +6,9 @@ the JAX package: quaternions are (w, x, y, z), ``quat_mul(a, b)`` applies b
 first, the heading of a root quaternion zeroes its x/y parts, Euler
 sequences follow the transformations.py encoding (all 24 of them, both
 ways: ``quat_from_euler``, ``euler_from_mat``, ``euler_from_quat``). The
-SMPL conversion also reads ``rotation_from_quat_shortest``.
+SMPL conversion also reads ``rotation_from_quat_shortest``; the BVH reader
+``quat_about_axis``; the 6D rotation representation (``rot6d_*``) is Zhou
+et al.'s, as the reference's ``transform_utils.py``.
 """
 
 from __future__ import annotations
@@ -65,6 +67,37 @@ def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
     return m.reshape(m.shape[:-1] + (3, 3))
 
 
+def mat_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) rotation matrix -> unit quaternion with w >= 0.
+
+    All four branches of the stable construction are evaluated and one is
+    selected: w where the trace is positive, else the largest diagonal
+    entry's (x on ties with y or z, y on ties with z), as the JAX package
+    selects, so that ties and gradients agree."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def build(w2, a, b, c, slot):
+        # w2 = 4 q[slot]^2; (a, b, c) fill the other slots in order
+        s = torch.sqrt(torch.clamp(w2, min=1e-18))
+        comps = [a / (2.0 * s), b / (2.0 * s), c / (2.0 * s)]
+        comps.insert(slot, 0.5 * s)
+        return torch.stack(comps, dim=-1)
+
+    q_w = build(1.0 + tr, m21 - m12, m02 - m20, m10 - m01, 0)
+    q_x = build(1.0 + m00 - m11 - m22, m21 - m12, m01 + m10, m02 + m20, 1)
+    q_y = build(1.0 + m11 - m00 - m22, m02 - m20, m01 + m10, m12 + m21, 2)
+    q_z = build(1.0 + m22 - m00 - m11, m10 - m01, m02 + m20, m12 + m21, 3)
+    cond_w = (tr > 0.0)[..., None]
+    cond_x = ((m00 >= m11) & (m00 >= m22))[..., None]
+    cond_y = (m11 >= m22)[..., None]
+    q = torch.where(cond_w, q_w,
+                    torch.where(cond_x, q_x, torch.where(cond_y, q_y, q_z)))
+    return torch.where(q[..., :1] < 0, -q, q)
+
+
 def quat_rot_vec(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """R(q) v for (..., 4) q and (..., 3) v (broadcasting)."""
     qv = q[..., 1:]
@@ -76,6 +109,15 @@ def quat_rot_vec(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 def quat_rot_vec_inv(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return quat_rot_vec(quat_conj(q), v)
+
+
+def quat_about_axis(angle: torch.Tensor, axis: torch.Tensor) -> torch.Tensor:
+    """Rotation by `angle` (...,) about a (not necessarily unit) axis
+    (..., 3)."""
+    axis = axis / safe_norm(axis)
+    half = angle[..., None] * 0.5
+    v = torch.sin(half) * axis
+    return torch.cat([torch.cos(half).expand(v.shape[:-1] + (1,)), v], dim=-1)
 
 
 def quat_from_expmap(e: torch.Tensor) -> torch.Tensor:
@@ -278,6 +320,31 @@ def angvel_fd(prev_bquat: torch.Tensor, cur_bquat: torch.Tensor,
     q = qd.reshape(qd.shape[:-1] + (-1, 4))
     aa = rotation_from_quat(q) / dt
     return aa.reshape(qd.shape[:-1] + (-1,))
+
+
+def rot6d_to_mat(x: torch.Tensor) -> torch.Tensor:
+    """Ortho-6D (..., 6) = (a1, a2) -> rotation matrix by Gram-Schmidt; the
+    matrix's columns are (b1, b2, b3). The norms are floored at 1e-8, so
+    the gradient stays finite at a1 = 0 and at a2 parallel to a1."""
+    a1, a2 = x[..., 0:3], x[..., 3:6]
+    b1 = a1 / safe_norm(a1, eps=1e-8)
+    b2 = a2 - torch.sum(b1 * a2, dim=-1, keepdim=True) * b1
+    b2 = b2 / safe_norm(b2, eps=1e-8)
+    b3 = torch.linalg.cross(b1, b2)
+    return torch.stack([b1, b2, b3], dim=-1)
+
+
+def mat_to_rot6d(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> 6D: its first two columns, concatenated."""
+    return torch.cat([m[..., :, 0], m[..., :, 1]], dim=-1)
+
+
+def quat_to_rot6d(q: torch.Tensor) -> torch.Tensor:
+    return mat_to_rot6d(quat_to_mat(q))
+
+
+def rot6d_to_quat(x: torch.Tensor) -> torch.Tensor:
+    return mat_to_quat(rot6d_to_mat(x))
 
 
 def normalize_angle_diff(base: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:

@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from kinpoly_tpu_torch import resolve_device
 from kinpoly_tpu_torch.data.banks import read_bank
 from kinpoly_tpu_torch.models import weights
-from kinpoly_tpu_torch.models.aux_nets import ResNet18
+from kinpoly_tpu_torch.models.aux_nets import ResNet18, init_flax_
 
 # the flow encoder trained on synthetic egomotion flow, in the repo
 OF_ENCODER = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
@@ -144,7 +144,7 @@ class FlowFeatureEncoder:
         if params is not None:
             self.net.load_state_dict(weights.resnet18_from_jax(params))
         else:
-            self.net.init_flax_(torch.Generator().manual_seed(0))
+            init_flax_(self.net, torch.Generator().manual_seed(0))
         self.net.to(self.device)
 
     @torch.no_grad()
@@ -216,7 +216,7 @@ class PersonFeatureExtractor:
         if params is not None:
             self.net.load_state_dict(weights.resnet18_from_jax(params))
         else:
-            self.net.init_flax_(torch.Generator().manual_seed(0))
+            init_flax_(self.net, torch.Generator().manual_seed(0))
         self.net.to(self.device)
 
     @torch.no_grad()

@@ -1,6 +1,6 @@
 """Core networks (port of ``kinpoly_tpu/models/nets.py``): MLP, value, the
 diagonal-Gaussian policy, the multiplicative compositional (MCP) policy of
-UHC, and the diagonal-Gaussian log-density.
+UHC, the diagonal-Gaussian log-density and KL divergence.
 
 Layer names follow the flax modules so that ``models/weights.py`` maps a
 flax parameter tree onto these state dicts one to one. Fresh parameters
@@ -143,17 +143,19 @@ class PolicyMCP(_StdHead):
 def init_flax_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fresh parameters as flax initialises them: every kernel lecun-normal
     (a normal truncated at 2 sigma, variance 1 / fan_in; the primitive
-    bank's (P, in, out) weights per primitive, fan_in = in; a GRU's input
-    kernels per gate), a GRU's recurrent kernels orthogonal per gate,
+    bank's (P, in, out) weights per primitive, fan_in = in; a GRU's or an
+    LSTM's input kernels per gate), their recurrent kernels orthogonal per
+    gate,
     every bias 0, ``log_std`` at its initial value. Draws from
     `generator`, which must live on the parameters' device."""
     for m in module.modules():
-        if isinstance(m, (nn.GRU, nn.GRUCell)):
+        if isinstance(m, (nn.GRU, nn.GRUCell, nn.LSTM)):
+            gates = 4 if isinstance(m, nn.LSTM) else 3
             for name, w in m.named_parameters():
                 if name.startswith("bias"):
                     w.zero_()
                     continue
-                for g in w.chunk(3, dim=0):       # the r, z, n gates
+                for g in w.chunk(gates, dim=0):   # r, z, n or i, f, g, o
                     if name.startswith("weight_ih"):
                         _lecun_normal_(g, g.shape[1], generator)
                     else:
@@ -184,3 +186,11 @@ def gaussian_log_prob(x: torch.Tensor, mean: torch.Tensor,
                                    ).to(dtype=x.dtype, device=x.device)
     lp = -((x - mean) ** 2) / (2 * var) - half_log_2pi - log_std
     return lp.sum(dim=-1)
+
+
+def gaussian_kl(mean0: torch.Tensor, log_std0: torch.Tensor,
+                mean1: torch.Tensor, log_std1: torch.Tensor) -> torch.Tensor:
+    """KL(p0 || p1) of two diagonal Gaussians, summed over the last dim."""
+    var0, var1 = torch.exp(2 * log_std0), torch.exp(2 * log_std1)
+    kl = log_std1 - log_std0 + (var0 + (mean0 - mean1) ** 2) / (2 * var1) - 0.5
+    return kl.sum(dim=-1)

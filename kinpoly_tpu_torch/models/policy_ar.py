@@ -20,10 +20,10 @@ from torch import nn
 
 from kinpoly_tpu_torch.anim.spec import HumanoidSpec, SpecTensors
 from kinpoly_tpu_torch.models import nets
+from kinpoly_tpu_torch.models.rnn import zero_rz_grad
 from kinpoly_tpu_torch.models.traj_ar import (ClipData, TrajARConfig,
-                                              TrajARNet, zero_rz_grad,
-                                              compute_loss_lite, obs_dim,
-                                              step_ar)
+                                              TrajARNet, compute_loss_lite,
+                                              obs_dim, step_ar)
 from kinpoly_tpu_torch.physics import fk as fklib
 
 QPOS_DIM = 76

@@ -38,6 +38,7 @@ from torch import nn
 from kinpoly_tpu_torch.anim.spec import HumanoidSpec, SpecTensors
 from kinpoly_tpu_torch.core import tmath
 from kinpoly_tpu_torch.models.nets import MLP, _linear
+from kinpoly_tpu_torch.models.rnn import zero_rz_grad
 from kinpoly_tpu_torch.physics import fk as fklib
 
 
@@ -217,14 +218,6 @@ def obs_dim(cfg: TrajARConfig, as_policy: bool = False) -> int:
     if cfg.use_of and as_policy:
         d += cfg.of_dim
     return d
-
-
-def zero_rz_grad(g: torch.Tensor) -> torch.Tensor:
-    """A GRU hidden bias's gradient with its r and z thirds zeroed: flax's
-    GRUCell has no such bias, so the torch GRU keeps them at 0."""
-    g = g.clone()
-    g[: 2 * (g.shape[0] // 3)] = 0.0
-    return g
 
 
 class TrajARNet(nn.Module):

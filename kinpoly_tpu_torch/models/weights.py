@@ -21,6 +21,15 @@ which refuses a non-zero r or z hidden bias: flax has no place for it);
 so does policy_v 2's residual head (``delta_from_jax``/``delta_to_jax``),
 which a policy_v 2 checkpoint stores beside TrajARNet as
 ``params = {"arnet": ..., "delta": ...}``.
+
+The model zoo (``models/aux_nets.py``, ``models/rnn.py``) has one
+``<net>_from_jax(variables)`` per net: flax ``Conv`` kernels (*k, in, out)
+become torch's (out, in, *k) (a depthwise kernel (3, 3, 1, C) becomes
+(C, 1, 3, 3)), a ``ConvTranspose`` kernel (*k, in, out) becomes (in, out,
+*k) flipped on every spatial axis (``aux_nets.ConvTranspose``), a
+``BatchNorm``'s scale, bias and batch_stats its weight, bias and running
+statistics, an ``OptimizedLSTMCell``'s gates a torch LSTM's stacked
+(i, f, g, o) with the biases on the hidden side.
 """
 
 from __future__ import annotations
@@ -242,31 +251,204 @@ def load_ar_checkpoint(path: str) -> dict:
                 epoch=int(blob["epoch"]), freq=blob.get("freq") or {})
 
 
+def _conv(prefix: str, d: dict) -> dict:
+    """flax ``Conv`` (kernel (*k, in/groups, out)) -> torch (out,
+    in/groups, *k), with its bias where it has one."""
+    k = np.asarray(d["kernel"])
+    nd = k.ndim - 2
+    sd = {f"{prefix}.weight": _t(k.transpose((nd + 1, nd) + tuple(range(nd))))}
+    if "bias" in d:
+        sd[f"{prefix}.bias"] = _t(d["bias"])
+    return sd
+
+
+def _conv_transpose(prefix: str, d: dict) -> dict:
+    """flax ``ConvTranspose`` (kernel (*k, in, out)) -> ``aux_nets.
+    ConvTranspose``'s (in, out, *k), flipped on every spatial axis."""
+    k = np.asarray(d["kernel"])
+    nd = k.ndim - 2
+    w = k.transpose((nd, nd + 1) + tuple(range(nd)))
+    w = np.flip(w, axis=tuple(range(2, nd + 2)))
+    return {f"{prefix}.weight": _t(w), f"{prefix}.bias": _t(d["bias"])}
+
+
+def _bn(prefix: str, d: dict, stats: dict) -> dict:
+    return {f"{prefix}.weight": _t(d["scale"]), f"{prefix}.bias": _t(d["bias"]),
+            f"{prefix}.running_mean": _t(stats["mean"]),
+            f"{prefix}.running_var": _t(stats["var"])}
+
+
+def _lstm(prefix: str, d: dict) -> dict:
+    """flax ``OptimizedLSTMCell`` (input kernels ii/if/ig/io without bias,
+    hidden kernels hi/hf/hg/ho with one) -> a one-layer torch LSTM's
+    stacked (i, f, g, o) weights, the biases on the hidden side."""
+    w_ih = np.concatenate([np.asarray(d[g]["kernel"]).T for g in ("ii", "if", "ig", "io")])
+    w_hh = np.concatenate([np.asarray(d[g]["kernel"]).T for g in ("hi", "hf", "hg", "ho")])
+    b_hh = np.concatenate([np.asarray(d[g]["bias"]) for g in ("hi", "hf", "hg", "ho")])
+    return {f"{prefix}.weight_ih_l0": _t(w_ih), f"{prefix}.weight_hh_l0": _t(w_hh),
+            f"{prefix}.bias_ih_l0": _t(np.zeros_like(b_hh)),
+            f"{prefix}.bias_hh_l0": _t(b_hh)}
+
+
+def _rnn(prefix: str, d: dict) -> dict:
+    """flax ``rnn.RNN`` params -> ``rnn.RNN``'s state dict entries, keys
+    prefixed by `prefix` ("" or "<name>.")."""
+    sd = {}
+    for cell in ("cell", "cell_bwd"):
+        if cell in d:
+            c = d[cell]
+            sd.update(_lstm(f"{prefix}{cell}", c) if "ii" in c
+                      else _gru(f"{prefix}{cell}", c, "_l0"))
+    return sd
+
+
+def _resnet18(prefix: str, p: dict, bs: dict) -> dict:
+    sd = _conv(f"{prefix}conv", p["Conv_0"])
+    sd.update(_bn(f"{prefix}bn", p["BatchNorm_0"], bs["BatchNorm_0"]))
+    i = 0
+    while f"ResBlock_{i}" in p:
+        b, s, pre = p[f"ResBlock_{i}"], bs[f"ResBlock_{i}"], f"{prefix}blocks.{i}"
+        for j in (0, 1):
+            sd.update(_conv(f"{pre}.conv{j}", b[f"Conv_{j}"]))
+            sd.update(_bn(f"{pre}.bn{j}", b[f"BatchNorm_{j}"], s[f"BatchNorm_{j}"]))
+        if "Conv_2" in b:
+            sd.update(_conv(f"{pre}.shortcut", b["Conv_2"]))
+        i += 1
+    sd.update(_dense(f"{prefix}fc", p["Dense_0"]))
+    return sd
+
+
 def resnet18_from_jax(variables: dict) -> dict:
     """flax ResNet18 variables ({"params", "batch_stats"}) -> the state
     dict of ``aux_nets.ResNet18``: ``Conv`` HWIO kernels to OIHW,
     ``BatchNorm`` scale/bias/mean/var to weight/bias/running_mean/
     running_var, ``Dense`` transposed."""
+    return _resnet18("", variables["params"], variables["batch_stats"])
+
+
+def rnn_from_jax(variables: dict) -> dict:
+    """flax ``RNN`` params -> the state dict of ``rnn.RNN``."""
+    return _rnn("", variables["params"])
+
+
+def _dw_block(prefix: str, p: dict, bs: dict) -> dict:
+    sd = _conv(f"{prefix}conv_dw", p["Conv_0"])
+    sd.update(_bn(f"{prefix}bn0", p["BatchNorm_0"], bs["BatchNorm_0"]))
+    sd.update(_conv(f"{prefix}conv_pw", p["Conv_1"]))
+    sd.update(_bn(f"{prefix}bn1", p["BatchNorm_1"], bs["BatchNorm_1"]))
+    return sd
+
+
+def dw_block_from_jax(variables: dict) -> dict:
+    """flax DWBlock variables -> the state dict of ``aux_nets.DWBlock``
+    (the depthwise kernel (3, 3, 1, C) becomes (C, 1, 3, 3))."""
+    return _dw_block("", variables["params"], variables["batch_stats"])
+
+
+def mobile_net_from_jax(variables: dict) -> dict:
+    """flax MobileNet variables -> ``aux_nets.MobileNet``'s state dict."""
     p, bs = variables["params"], variables["batch_stats"]
-
-    def conv(prefix, d):
-        return {f"{prefix}.weight": _t(np.asarray(d["kernel"]).transpose(3, 2, 0, 1))}
-
-    def bn(prefix, d, stats):
-        return {f"{prefix}.weight": _t(d["scale"]), f"{prefix}.bias": _t(d["bias"]),
-                f"{prefix}.running_mean": _t(stats["mean"]),
-                f"{prefix}.running_var": _t(stats["var"])}
-
-    sd = conv("conv", p["Conv_0"])
-    sd.update(bn("bn", p["BatchNorm_0"], bs["BatchNorm_0"]))
+    sd = _conv("conv", p["Conv_0"])
+    sd.update(_bn("bn", p["BatchNorm_0"], bs["BatchNorm_0"]))
     i = 0
-    while f"ResBlock_{i}" in p:
-        b, s, pre = p[f"ResBlock_{i}"], bs[f"ResBlock_{i}"], f"blocks.{i}"
-        for j in (0, 1):
-            sd.update(conv(f"{pre}.conv{j}", b[f"Conv_{j}"]))
-            sd.update(bn(f"{pre}.bn{j}", b[f"BatchNorm_{j}"], s[f"BatchNorm_{j}"]))
-        if "Conv_2" in b:
-            sd.update(conv(f"{pre}.shortcut", b["Conv_2"]))
+    while f"DWBlock_{i}" in p:
+        sd.update(_dw_block(f"blocks.{i}.", p[f"DWBlock_{i}"], bs[f"DWBlock_{i}"]))
         i += 1
     sd.update(_dense("fc", p["Dense_0"]))
+    return sd
+
+
+def _convs(prefix: str, p: dict, name: str = "Conv") -> dict:
+    sd, i = {}, 0
+    while f"{name}_{i}" in p:
+        conv = _conv_transpose if name == "ConvTranspose" else _conv
+        sd.update(conv(f"{prefix}.{i}", p[f"{name}_{i}"]))
+        i += 1
+    return sd
+
+
+def simple_cnn_from_jax(variables: dict) -> dict:
+    """flax SimpleCNN params -> ``aux_nets.SimpleCNN``'s state dict."""
+    p = variables["params"]
+    sd = _convs("convs", p)
+    sd.update(_dense("fc", p["Dense_0"]))
+    return sd
+
+
+def tcn_from_jax(variables: dict) -> dict:
+    """flax TCN params -> ``aux_nets.TCN``'s state dict (1-D kernels (k,
+    in, out) to torch's (out, in, k))."""
+    return simple_cnn_from_jax(variables)
+
+
+def erd_net_from_jax(variables: dict) -> dict:
+    """flax ERDNet params -> ``aux_nets.ERDNet``'s state dict."""
+    p = variables["params"]
+    sd = _mlp("enc", p["MLP_0"])
+    sd.update(_rnn("rnn.", p["RNN_0"]))
+    sd.update(_mlp("dec", p["MLP_1"]))
+    sd.update(_dense("fc", p["Dense_0"]))
+    return sd
+
+
+def _mlp_head(variables: dict) -> dict:
+    p = variables["params"]
+    sd = _mlp("mlp", p["MLP_0"])
+    sd.update(_dense("fc", p["Dense_0"]))
+    return sd
+
+
+def cmlp_from_jax(variables: dict) -> dict:
+    """flax CMLP params -> ``aux_nets.CMLP``'s state dict."""
+    return _mlp_head(variables)
+
+
+def discriminator_from_jax(variables: dict) -> dict:
+    """flax Discriminator params -> ``aux_nets.Discriminator``'s state dict."""
+    return _mlp_head(variables)
+
+
+def policy_discrete_from_jax(variables: dict) -> dict:
+    """flax PolicyDiscrete params -> ``aux_nets.PolicyDiscrete``'s state
+    dict."""
+    return _mlp_head(variables)
+
+
+def video_reg_net_from_jax(variables: dict) -> dict:
+    """flax VideoRegNet variables -> ``aux_nets.VideoRegNet``'s state dict."""
+    p, bs = variables["params"], variables["batch_stats"]
+    sd = _resnet18("cnn.", p["ResNet18_0"], bs["ResNet18_0"])
+    sd.update(_rnn("rnn.", p["RNN_0"]))
+    sd.update(_mlp_head(variables))
+    return sd
+
+
+def video_state_net_from_jax(variables: dict) -> dict:
+    """flax VideoStateNet params -> ``aux_nets.VideoStateNet``'s state dict."""
+    p = variables["params"]
+    sd = _rnn("rnn.", p["RNN_0"])
+    sd.update(_dense("fc", p["Dense_0"]))
+    return sd
+
+
+def video_forecast_net_from_jax(variables: dict) -> dict:
+    """flax VideoForecastNet params -> ``aux_nets.VideoForecastNet``'s state
+    dict (the decoder ``GRUCell``'s (1, H) input kernel included)."""
+    p = variables["params"]
+    sd = _rnn("rnn.", p["RNN_0"])
+    sd.update(_gru("dec.cell", p["GRUCell_0"], "_l0"))
+    sd.update(_dense("fc", p["Dense_0"]))
+    return sd
+
+
+def space_net_from_jax(variables: dict) -> dict:
+    """flax SpaceNet params -> ``aux_nets.SpaceNet``'s state dict (3-D
+    kernels; the transposed convolutions' flipped, ``aux_nets.
+    ConvTranspose``)."""
+    p = variables["params"]
+    sd = _convs("convs", p)
+    sd.update(_dense("mu", p["Dense_0"]))
+    sd.update(_dense("logvar", p["Dense_1"]))
+    sd.update(_dense("dec_in", p["Dense_2"]))
+    sd.update(_convs("deconvs", p, "ConvTranspose"))
     return sd

@@ -22,8 +22,10 @@ One composite epoch:
 
 No gradient reaches the physics: the rollout is recorded without one, and
 the losses go through the kinematic integrator only. The four optimiser
-chains are ``rl/optim.AdamChain`` (optax's, stepping every parameter);
-data parallelism (the JAX config's ``axis_name``) is not ported.
+chains are ``rl/optim.AdamChain`` (optax's, stepping every parameter).
+The JAX update's data-parallel branch (the config's ``axis_name``, with
+``parallel/mesh.py``) is the one part of the JAX package still to port:
+this agent runs on one device.
 """
 
 from __future__ import annotations

@@ -79,3 +79,15 @@ def test_data_path_modules_are_covered():
                 "data/amass_dataset.py", "data/ground_fix.py",
                 "utils/html_viewer.py", "scripts/view_motion.py"):
         assert ROOT / "kinpoly_tpu_torch" / mod in FILES, mod
+
+
+def test_zoo_modules_are_covered():
+    """The rest of anim and tmath, the model zoo with its RNN and the
+    reference state-dict loader, TRPO and A2C, and the host utilities are
+    among the files scanned above."""
+    for mod in ("core/tmath.py", "anim/smpl_model.py", "anim/bvh.py",
+                "anim/retarget.py", "anim/occupancy.py", "models/rnn.py",
+                "models/aux_nets.py", "models/weights.py",
+                "models/torch_import.py", "rl/trpo.py", "rl/a2c.py",
+                "utils/profiling.py", "utils/flags.py", "utils/native.py"):
+        assert ROOT / "kinpoly_tpu_torch" / mod in FILES, mod
