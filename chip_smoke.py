@@ -167,9 +167,36 @@ Phases, one line each with its seconds:
               the surrogate improved, its new parameters within 1e-3 of CPU
               f64; A2C's losses and gradients within 1e-3 relative (its new
               parameters' difference reported); ms per update
+ 16. dp       data parallelism (parallel/dryrun.py), spawned ranks on the
+              one card (gloo over CUDA tensors; NCCL refuses two ranks on
+              one card), the gloo ranks started once for (c), (a) and (b):
+              (c) pmean_grads_ on seeded float32 gradients of a (512, 256)
+              value net in each rank against the ranks' mean within 1e-6
+              relative, a None gradient kept; (a) the data-parallel UHC
+              step (rollout, the JAX step's norm merge, GAE, one value and
+              one policy step with averaged gradients) at uhc.yml's
+              widths on clips24, 2
+              ranks x 512 envs (phase 7's 1024 split), 8 control steps, 2
+              steps, launches counted in each rank (exactly 30/15/15/15
+              per control step), the norm counting both ranks' samples,
+              policy and value bitwise equal across ranks after each step,
+              the policy moved, all finite; (b) the AR update with the
+              group: train_ar_policy's agent from iter_0800.p with
+              iter_13000.p and the joint controller on ar_train_56.pkl, 2
+              ranks x 32 envs (kin_poly.yml's 64), 8 control steps (cut
+              from 156), 2 steps on a context replicated from rank 0
+              (exactly 30/15/15[R=49]/15 per control step and rank),
+              policy, value and controller bitwise equal across ranks, the
+              controller moved, metrics finite, bc_nan_frac 0; (d) one UHC
+              step of 512 envs in a one-rank NCCL group through the same
+              code, started after (b); prints per rank s per step,
+              rollout ms per control step and peak memory, beside phase
+              7's one-process ms per control step
 Then a JSON line with every kernel's numbers, the card's nvidia-smi line,
 and as the last line {"ok": true, "device": {...}}. Any failure exits
-non-zero before that line; a watchdog ends the run past 10 minutes.
+non-zero before that line; a watchdog ends the run past 10 minutes. On an
+NVIDIA H100 80GB HBM3 at 700 W the whole run has taken 389-510 s, phase
+16 47-85 s of it: the margin, 90-210 s, is what a slow host may eat.
 """
 
 from __future__ import annotations
@@ -252,6 +279,13 @@ ZOO_RTOL = 1e-3                       # zoo nets, card f32 vs CPU f64, / max |ou
 ZOO_IMAGES, ZOO_SEQ = 8, (4, 32, 128)  # 64 x 64 frames; (B, T, D) sequences
 ROLLOUT_SAMPLES = 8192                # one UHC rollout: 1024 envs x 8 control steps
 RL_ATOL = 1e-3                        # TRPO parameters, A2C gradients, f32 vs f64
+# the dp phase
+DP_RANKS = 2                          # ranks sharing the one card over gloo
+DP_UHC_ENVS = TRAIN_ENVS // DP_RANKS  # envs per rank: phase 7's 1024, split
+DP_STEPS = 2                          # data-parallel steps of each path
+DP_AR_ENVS = 64                       # kin_poly.yml's n_envs, over both ranks
+DP_AR_STEPS = 8                       # AR rollout depth, cut from 156
+DP_PMEAN_RTOL = 1e-6                  # pmean_grads_ vs the ranks' mean, f32
 T0 = time.perf_counter()
 
 
@@ -268,6 +302,9 @@ def fail(msg: str) -> None:
 def _expire() -> None:
     print(f"FAILED: watchdog, still running after {WATCHDOG_S} s",
           file=sys.stderr, flush=True)
+    ranks = sys.modules.get("kinpoly_tpu_torch.parallel.ranks")
+    if ranks is not None:
+        ranks.kill_all()
     os._exit(124)
 
 
@@ -1677,6 +1714,126 @@ def rl_phase(device, obs_dim: int, act_dim: int) -> dict:
     return out
 
 
+def dp_phase(here: str, takes: dict, one_proc_ms: float, ar_rows: dict,
+             kernels: list) -> None:
+    """Phase 16: (c), (a), (b) in DP_RANKS gloo ranks on the card, then
+    (d) in a one-rank NCCL group started after (b), so that no third
+    process shares the host while (a) and (b) are timed."""
+    from kinpoly_tpu_torch.anim.spec import synthetic_spec
+    from kinpoly_tpu_torch.config.defaults import KinPolyConfig
+    from kinpoly_tpu_torch.parallel import dryrun as dp
+    from kinpoly_tpu_torch.parallel.ranks import RankPool
+    from kinpoly_tpu_torch.scripts import train_ar_policy as tap
+
+    tp = time.perf_counter()
+    gloo = RankPool(DP_RANKS, "gloo", "cuda", threads=2)
+    try:
+        # (c) the collective on CUDA tensors
+        pm = gloo.run(dp.pmean_check_job, 7)
+        say("dp", f"ranks up; (c) pmean_grads_ on {pm[0]['n']} float32 "
+            f"gradients per rank over gloo on CUDA tensors: max error "
+            f"relative to max |mean| " + ", ".join(
+                f"rank {r} {x['rel_err']:.3g}" for r, x in enumerate(pm))
+            + f" (tol {DP_PMEAN_RTOL}); None gradient kept "
+            f"{all(x['none_kept'] for x in pm)}", tp)
+        if not all(x["rel_err"] < DP_PMEAN_RTOL and x["none_kept"] for x in pm):
+            fail(f"pmean_grads_ against the ranks' mean: {pm}")
+
+        # (a) the data-parallel UHC step
+        tp = time.perf_counter()
+        ua = gloo.run(dp.uhc_job, takes, DP_UHC_ENVS, TRAIN_STEPS, DP_STEPS)
+        check_dp_uhc("(a) uhc", ua, DP_RANKS, DP_STEPS, one_proc_ms, tp)
+
+        # (b) the AR update with the group
+        tp = time.perf_counter()
+        cfg = KinPolyConfig()
+        ar_takes = tap.get_takes(synthetic_spec(with_objects=True),
+                                 os.path.join(here, AR_TRAIN))
+        ab = gloo.run(dp.ar_job, ar_takes, os.path.join(here, UHC_CKPT),
+                      os.path.join(here, cfg.model_dir(AR_OUT),
+                                   f"iter_{AR_ITER:04d}.p"),
+                      DP_AR_ENVS, DP_AR_STEPS, DP_STEPS)
+        n = DP_STEPS * DP_AR_STEPS
+        expect = {"ltdl_factor": 30 * n, "ltdl_solve[R=1]": 15 * n,
+                  "ltdl_solve[R=49]": 15 * n, "pgs_solve": 15 * n}
+        for r, x in enumerate(ab):
+            ph = x["phase_s"]
+            say("dp", f"(b) ar rank {r}: {DP_AR_ENVS // DP_RANKS} of "
+                f"{DP_AR_ENVS} envs x {DP_AR_STEPS} control steps x "
+                f"{DP_STEPS} steps from iter_{AR_ITER:04d}.p with the joint "
+                f"controller: s per step {[round(t, 2) for t in x['step_s']]}"
+                f", rollout {ph.get('rollout', 0) / n * 1e3:.1f} ms per "
+                f"control step, context {ph.get('context', 0) / DP_STEPS:.2f}"
+                f" s, PPO {ph.get('ppo', 0) / DP_STEPS * 1e3:.0f} ms, BC "
+                f"{ph.get('bc', 0) / DP_STEPS * 1e3:.0f} ms, controller "
+                f"{ph.get('controller', 0) / DP_STEPS * 1e3:.0f} ms per step; "
+                f"peak {x['peak_gib']:.2f} GiB; context gap between ranks "
+                f"before / after the broadcast {x['ctx_gaps']}; nets' gap "
+                f"{x['gaps']}; launches {x['launches']} (expected {expect}); "
+                "metrics " + "; ".join(
+                    f"R {m['reward_mean']:.4f} ppo {m['ppo_loss']:.4g} bc "
+                    f"{m['bc_loss']:.4g} cc {m['cc_loss']:.4g} pg "
+                    f"{m['ppo_grad_norm']:.4g} bc_nan_frac "
+                    f"{m['bc_nan_frac']:.2f}" for m in x["metrics"])
+                + f"; controller moved {x['cc_moved']:.3g}", tp)
+            if x["launches"] != expect:
+                fail(f"AR rank {r} launches {x['launches']} != {expect}")
+            if any(g != (g[0], 0.0) for g in x["ctx_gaps"]):
+                fail(f"AR rank {r}: the contexts differ after the broadcast")
+            if any(g != 0.0 for g in x["gaps"]):
+                fail(f"AR rank {r}: the ranks' nets differ: {x['gaps']}")
+            if not x["finite"] or not x["cc_moved"] > 0:
+                fail(f"AR rank {r}: non-finite metrics or the controller "
+                     f"did not move")
+            if any(m["bc_nan_frac"] != 0 or not m["ppo_grad_norm"] > 0
+                   for m in x["metrics"]):
+                fail(f"AR rank {r}: dead PPO or non-finite BC gradients")
+        for k in kernels:
+            k["launches_by_path"]["dp_ar_rank0"] = ab[0]["launches"].get(
+                ar_rows.get(k["name"], ""), 0)
+        for k in kernels:
+            k["launches_by_path"]["dp_uhc_rank0"] = ua[0]["launches"].get(
+                k["name"], 0)
+    finally:
+        gloo.close()
+
+    # (d) one step in a one-rank NCCL group
+    tp = time.perf_counter()
+    with RankPool(1, "nccl", "cuda", threads=2) as nccl:
+        ud = nccl.run(dp.uhc_job, takes, DP_UHC_ENVS, TRAIN_STEPS, 1)
+    check_dp_uhc("(d) nccl", ud, 1, 1, one_proc_ms, tp)
+
+
+def check_dp_uhc(tag: str, res: list, n_ranks: int, steps: int,
+                 one_proc_ms: float, tp: float) -> None:
+    """The checks of a data-parallel UHC run: launches per control step
+    in each rank, the norm counting every rank's samples after each
+    step, the ranks' nets bitwise equal, the policy moved, all finite."""
+    n = steps * TRAIN_STEPS
+    expect = {"ltdl_factor": 30 * n, "ltdl_solve[R=1]": 15 * n,
+              "ltdl_solve[R=55]": 15 * n, "pgs_solve": 15 * n}
+    counts = [float(n_ranks * DP_UHC_ENVS * TRAIN_STEPS * (i + 1))
+              for i in range(steps)]
+    for r, x in enumerate(res):
+        say("dp", f"{tag} rank {r} of {n_ranks}: {DP_UHC_ENVS} envs x "
+            f"{TRAIN_STEPS} control steps x {steps} steps: s per step "
+            f"{[round(t, 2) for t in x['step_s']]}, rollout "
+            f"{x['rollout_s'] / n * 1e3:.1f} ms per control step (phase 7, "
+            f"one process at {TRAIN_ENVS} envs: {one_proc_ms:.1f}), peak "
+            f"{x['peak_gib']:.2f} GiB; norm counts {x['counts']} (expected "
+            f"{counts}); nets' gap between ranks {x['gaps']}; losses "
+            f"{x['losses']}; policy moved {x['moved']:.3g}; launches "
+            f"{x['launches']} (expected {expect})", tp)
+        if x["launches"] != expect:
+            fail(f"{tag} rank {r} launches {x['launches']} != {expect}")
+        if x["counts"] != counts:
+            fail(f"{tag} rank {r} norm counts {x['counts']} != {counts}")
+        if any(g != 0.0 for g in x["gaps"]):
+            fail(f"{tag} rank {r}: the ranks' nets differ: {x['gaps']}")
+        if not x["finite"] or not x["moved"] > 0:
+            fail(f"{tag} rank {r}: non-finite or the policy did not move")
+
+
 def main() -> None:
     watchdog = threading.Timer(WATCHDOG_S, _expire)
     watchdog.daemon = True
@@ -2437,6 +2594,9 @@ def main() -> None:
 
     # 15. zoo: LBS, retargeting, occupancy, the model zoo, TRPO and A2C ------
     zoo_phase(device, kernels)
+
+    # 16. dp: data parallelism, two ranks on the card --------------------------
+    dp_phase(here, takes, ltdl_ms, ar_rows, kernels)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line, flush=True)

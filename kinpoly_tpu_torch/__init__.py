@@ -4,8 +4,8 @@ The JAX package ``kinpoly_tpu`` stays the reference; this package mirrors it
 module for module in PyTorch, with hand-written CUDA kernels (``csrc/``) in
 place of its Pallas TPU kernels. It imports torch, numpy and the standard
 library only (scipy inside the SMPL archive reader, for a sparse
-regressor). Two JAX modules have no counterpart: ``parallel/mesh.py``, the
-data parallelism of the AR and UHC updates, is still to port;
+regressor). ``parallel/`` holds the data parallelism over
+torch.distributed. One JAX module has no counterpart:
 ``utils/visualizer.py`` is MuJoCo's renderer, which the port does not
 import (``utils/html_viewer.py`` views a motion instead).
 """

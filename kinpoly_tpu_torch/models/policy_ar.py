@@ -59,6 +59,11 @@ class ActionDeltaNet(nn.Module):
         self.fc = nets._linear(self.MLP_HSIZE[-1], QPOS_DIM)
         self.rnn.bias_hh.register_hook(zero_rz_grad)
 
+    def __setstate__(self, state):
+        # a tensor's hooks are neither pickled nor deep-copied
+        super().__setstate__(state)
+        self.rnn.bias_hh.register_hook(zero_rz_grad)
+
     def head(self, h: torch.Tensor, obs: torch.Tensor) -> torch.Tensor:
         """The action of GRU output `h` on observation `obs`."""
         return self.fc(self.mlp(h)) + obs[..., -QPOS_DIM:]

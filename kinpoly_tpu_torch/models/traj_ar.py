@@ -239,9 +239,17 @@ class TrajARNet(nn.Module):
             d += H
         self.action_mlp = MLP(d, cfg.mlp_hsize, cfg.mlp_htype)
         self.action_fc = _linear(cfg.mlp_hsize[-1], cfg.action_dim)
+        self._hook_rz()
+
+    def _hook_rz(self) -> None:
         for name, p in self.named_parameters():
             if name.rsplit(".", 1)[-1].startswith("bias_hh"):
                 p.register_hook(zero_rz_grad)
+
+    def __setstate__(self, state):
+        # a tensor's hooks are neither pickled nor deep-copied
+        super().__setstate__(state)
+        self._hook_rz()
 
     def context_input(self, data: ClipData) -> torch.Tensor:
         c = self.cfg

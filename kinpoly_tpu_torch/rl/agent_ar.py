@@ -23,9 +23,16 @@ One composite epoch:
 No gradient reaches the physics: the rollout is recorded without one, and
 the losses go through the kinematic integrator only. The four optimiser
 chains are ``rl/optim.AdamChain`` (optax's, stepping every parameter).
-The JAX update's data-parallel branch (the config's ``axis_name``, with
-``parallel/mesh.py``) is the one part of the JAX package still to port:
-this agent runs on one device.
+
+Data parallelism (the JAX config's ``axis_name``): with a process group
+in ``group``, ``update`` averages every gradient across the ranks right
+after its backward pass (``parallel/mesh.pmean_grads_``), before the
+chain's clip and Adam, so the replicated nets and chains stay bitwise
+equal. ``ppo_grad_norm`` and ``bc_nan_frac`` are read off the averaged
+gradient; GAE's normalisation and every metric stay rank-local, as in
+JAX. ``parallel/dryrun.dp_ar_step`` runs the rank's block of envs on a
+context replicated from rank 0. ``train_init`` and ``optimize_policy``
+run on one device, as JAX's do.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from kinpoly_tpu_torch.models import nets, weights
 from kinpoly_tpu_torch.models.policy_ar import PolicyAR
 from kinpoly_tpu_torch.models.traj_ar import (ClipData, compute_loss,
                                               compute_loss_init, obs_dim)
+from kinpoly_tpu_torch.parallel.mesh import pmean_grads_
 from kinpoly_tpu_torch.physics import fk as fklib
 from kinpoly_tpu_torch.rl import gae
 from kinpoly_tpu_torch.rl import rollout_ar as roa
@@ -125,6 +133,9 @@ class AgentAR:
     # (context, rollout, ppo, bc, controller) and adds its seconds to
     # phase_s
     time_phases = False
+    # a process group: update averages every gradient across its ranks
+    # (None: one device)
+    group = None
 
     def __init__(self, env: HumanoidAREnv, dataset: StateARDataset,
                  cfg: ARTrainConfig | None = None, out_dir: str | None = None):
@@ -189,12 +200,20 @@ class AgentAR:
 
     # -- supervised warm start --------------------------------------------
 
-    def _sup_update(self, loss: torch.Tensor) -> torch.Tensor:
+    def _backward(self, loss: torch.Tensor, opt: AdamChain,
+                  group=None) -> None:
+        """The gradient of `loss` into `opt`'s parameters, averaged across
+        the ranks of `group` if one is given."""
+        opt.zero_grad()
+        loss.backward()
+        if group is not None:
+            pmean_grads_(opt.params, group)
+
+    def _sup_update(self, loss: torch.Tensor, group=None) -> torch.Tensor:
         """One step of the supervised chain on `loss`; returns the fraction
         of gradient leaves that held a non-finite value (over every
         policy parameter, as JAX counts its whole tree)."""
-        self.sup_opt.zero_grad()
-        loss.backward()
+        self._backward(loss, self.sup_opt, group)
         nan_frac = grad_nonfinite_fraction(
             [(n, p.grad) for n, p in self.policy.named_parameters()])
         self.sup_opt.step()
@@ -274,7 +293,9 @@ class AgentAR:
         """PPO (or the joint PPO + BC epochs), step BC and the controller
         epochs on a recorded trajectory (T, N, ...); `last_obs` is the
         observation after its last step (the value bootstrap). Updates the
-        nets in place; returns the metrics as 0-dim tensors."""
+        nets in place; returns the metrics as 0-dim tensors. With a
+        ``group``, `traj` is this rank's block of envs and the gradients
+        are averaged across the ranks."""
         cfg = self.cfg
         T, N = traj.rewards.shape
         zero = torch.zeros((), dtype=self.dtype, device=self.device)
@@ -305,8 +326,7 @@ class AgentAR:
             with self._phase("ppo"):
                 for _ in range(cfg.num_optim_epoch):
                     vl = torch.mean((self.value(obs) - ret) ** 2)
-                    self.val_opt.zero_grad()
-                    vl.backward()
+                    self._backward(vl, self.val_opt, self.group)
                     self.val_opt.step()
                     means = self.policy.action_means_over_time(traj.obs,
                                                                prev_masks)
@@ -319,8 +339,7 @@ class AgentAR:
                             traj.obs, prev_masks, traj.curr_qpos,
                             traj.gt_qpos, means=means)
                         loss = w_ppo * loss + w_bc * bc * 10.0
-                    self.pol_opt.zero_grad()
-                    loss.backward()
+                    self._backward(loss, self.pol_opt, self.group)
                     pgnorms.append(global_norm(
                         [torch.zeros_like(p) if p.grad is None else p.grad
                          for p in self.pol_opt.params]))
@@ -334,7 +353,8 @@ class AgentAR:
             for _ in range(cfg.num_step_update):
                 loss, _ = self.policy.step_update_loss(
                     traj.obs, prev_masks, traj.curr_qpos, target)
-                nan_fracs.append(self._sup_update(loss).to(self.dtype))
+                nan_fracs.append(self._sup_update(loss, self.group).to(
+                    self.dtype))
                 losses.append(loss.detach())
             return losses, nan_fracs
 
@@ -358,8 +378,7 @@ class AgentAR:
                 for _ in range(cfg.num_optim_epoch):
                     loss, _ = surrogate(nets.gaussian_log_prob(
                         cc_action, *self.cc_policy(cc_state)), cc_fixed)
-                    self.cc_opt.zero_grad()
-                    loss.backward()
+                    self._backward(loss, self.cc_opt, self.group)
                     self.cc_opt.step()
                     cc_losses.append(loss.detach())
 

@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from kinpoly_tpu_torch.models import nets
+from kinpoly_tpu_torch.parallel.mesh import pmean_grads_
 
 
 class PPOConfig(NamedTuple):
@@ -54,10 +55,15 @@ def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
 
 
 def _step(opt: torch.optim.Optimizer, loss: torch.Tensor, max_norm: float,
-          lr_mult: float = 1.0) -> None:
+          lr_mult: float = 1.0, group=None) -> None:
+    """One step of `opt` on `loss`: the gradient (averaged across the
+    ranks of `group`, if one is given, as JAX's ``pmean`` before the
+    chain), its global-norm clip, Adam."""
     opt.zero_grad()
     loss.backward()
     params = [p for g in opt.param_groups for p in g["params"]]
+    if group is not None:
+        pmean_grads_(params, group)
     clip_by_global_norm_(params, max_norm)
     if lr_mult == 1.0:
         opt.step()
