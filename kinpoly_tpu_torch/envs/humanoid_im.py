@@ -28,6 +28,7 @@ from kinpoly_tpu_torch.data import expert as exlib
 from kinpoly_tpu_torch.physics import engine as eng
 from kinpoly_tpu_torch.physics import fk as fklib
 from kinpoly_tpu_torch.rl import rewards as rwlib
+from kinpoly_tpu_torch.utils.profiling import spanned
 
 
 @dataclass(frozen=True)
@@ -225,6 +226,7 @@ class HumanoidImEnv:
         return exlib.bank_frame(self.bank, state.clip_idx,
                                 state.start_ind + state.cur_t + delta_t)
 
+    @spanned("env.observe")
     def get_obs(self, state: EnvState, fk_res: fklib.FKResult | None = None):
         if fk_res is None:
             fk_res = fklib.fk(self.model.st, state.sim.qpos)
@@ -233,6 +235,7 @@ class HumanoidImEnv:
                         TargetFrame(t.qpos, t.wbpos, t.body_com, t.wbquat),
                         include_com=self.cfg.obs_v == 1)
 
+    @spanned("env.reward")
     def reward(self, state: EnvState, next_sim: eng.SimState, action,
                fk_res: fklib.FKResult):
         """`state` carries the post-increment time, so the expert frame is
@@ -288,6 +291,7 @@ class HumanoidImEnv:
         diff = (cur - ref) * self.jpos_diffw[:, None]
         return torch.linalg.norm(diff, dim=-1).mean(dim=-1)
 
+    @spanned("env.step")
     def step(self, state: EnvState, action: torch.Tensor):
         """One control step of every env: (state, obs, reward, done, info)."""
         cfg = self.cfg
@@ -326,6 +330,7 @@ class HumanoidImEnv:
         obs = self.get_obs(new_state, fk_res)
         return new_state, obs, reward, done, StepInfo(fail, end, percent, rinfo)
 
+    @spanned("env.reset")
     def reset(self, clip_idx: torch.Tensor, start_ind: int = 0,
               deterministic: bool = True,
               generator: torch.Generator | None = None):

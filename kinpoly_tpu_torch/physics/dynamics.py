@@ -16,6 +16,7 @@ import torch
 
 from kinpoly_tpu_torch.core import tmath
 from kinpoly_tpu_torch.physics import fk as fklib
+from kinpoly_tpu_torch.utils.profiling import spanned
 
 
 def _skew(v: torch.Tensor) -> torch.Tensor:
@@ -139,6 +140,7 @@ def mass_matrix(st, tables: DynamicsTables, ks: KinState) -> torch.Tensor:
     return M + torch.diag(st.armature)
 
 
+@spanned("physics.bias_force")
 def bias_force(tables: DynamicsTables, ks: KinState, qvel: torch.Tensor,
                gravity: float = -9.81) -> torch.Tensor:
     """RNEA with qacc = 0: qfrc_bias (Coriolis, centrifugal, gravity), with

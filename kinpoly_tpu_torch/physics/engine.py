@@ -57,6 +57,7 @@ from kinpoly_tpu_torch.physics import contact as ct
 from kinpoly_tpu_torch.physics import dynamics as dyn
 from kinpoly_tpu_torch.physics import fk as fklib
 from kinpoly_tpu_torch.physics import chol_cuda, ltdl, ltdl_cuda, pgs_cuda
+from kinpoly_tpu_torch.utils.profiling import span, spanned
 
 
 class SimState(NamedTuple):
@@ -351,6 +352,7 @@ def _cand_world(model: PhysicsModel, fk_res) -> torch.Tensor:
         fk_res.xquat[..., cb, :], model.cand_verts)
 
 
+@spanned("physics.contact_plan")
 def build_contact_plan(model: PhysicsModel, qpos: torch.Tensor,
                        obj_qpos: torch.Tensor | None = None) -> ct.ContactPlan:
     """Candidate index sets for one control step, from one FK at the
@@ -403,6 +405,7 @@ def _obj_frames(od: ObjDynParams, obj_qpos, obj_qvel) -> _ObjFrames:
                       a_smooth=torch.cat([gvec, gyro], dim=-1))
 
 
+@spanned("physics.contacts")
 def _contact_accel(model: PhysicsModel, state: SimState, ks: dyn.KinState,
                    tau_minus_C: torch.Tensor, solve_M, plan, obj_qpos,
                    of: _ObjFrames | None):
@@ -516,9 +519,10 @@ def _contact_accel(model: PhysicsModel, state: SimState, ks: dyn.KinState,
 
     A, rhs, Dinv, Rr = ct.contact_system(J, MiJt, qacc, qvel, depth, active,
                                          row_live, **extra)
-    f = pgs_cuda.pgs_solve(A, rhs, Dinv.contiguous(), Rr.contiguous(),
-                           friction.contiguous(), active.contiguous(),
-                           model.contact_iters)
+    with span("physics.pgs"):
+        f = pgs_cuda.pgs_solve(A, rhs, Dinv.contiguous(), Rr.contiguous(),
+                               friction.contiguous(), active.contiguous(),
+                               model.contact_iters)
     qacc = qacc + torch.einsum("...vc,...c->...v", MiJt, f[..., :J.shape[-2]])
     if not movable:
         return qacc, None
@@ -530,6 +534,7 @@ def _contact_accel(model: PhysicsModel, state: SimState, ks: dyn.KinState,
     return qacc, torch.cat([a_lin, a_ang], dim=-1)
 
 
+@spanned("physics.substep")
 def substep(model: PhysicsModel, state: SimState, ctrl_joint, vf, base_pos,
             base_rot, plan: ct.ContactPlan | None = None,
             obj_qpos: torch.Tensor | None = None, jkp=None, jkd=None,
@@ -555,25 +560,35 @@ def substep(model: PhysicsModel, state: SimState, ctrl_joint, vf, base_pos,
                         dim=-1)
 
     if model.solver == "ltdl":
-        R = ltdl.crba_packed(st, tables, topo, ks)
-        Rf_A = ltdl_cuda.factor(topo, ltdl.add_diag(topo, R, kd_full * model.dt))
-        Rf_M = ltdl_cuda.factor(topo, R.contiguous())
+        with span("physics.crba"):
+            R = ltdl.crba_packed(st, tables, topo, ks)
+        with span("physics.factor"):
+            Rf_A = ltdl_cuda.factor(topo, ltdl.add_diag(topo, R,
+                                                        kd_full * model.dt))
+            Rf_M = ltdl_cuda.factor(topo, R.contiguous())
 
         def solve_A(rhs):
-            return ltdl_cuda.solve(topo, Rf_A, rhs[..., None].contiguous())[..., 0]
+            with span("physics.solve"):
+                return ltdl_cuda.solve(topo, Rf_A,
+                                       rhs[..., None].contiguous())[..., 0]
 
         def solve_M(B):
-            return ltdl_cuda.solve(topo, Rf_M, B.contiguous())
+            with span("physics.solve"):
+                return ltdl_cuda.solve(topo, Rf_M, B.contiguous())
     else:
-        M = dyn.mass_matrix(st, tables, ks)
-        M_pd = M + torch.diag_embed(kd_full * model.dt)
+        with span("physics.crba"):
+            M = dyn.mass_matrix(st, tables, ks)
+        with span("physics.factor"):
+            M_pd = M + torch.diag_embed(kd_full * model.dt)
         spd = chol_cuda.solve_only if model.use_pallas_chol else dyn.chol_solve
 
         def solve_A(rhs):
-            return spd(M_pd, rhs[..., None].contiguous())[..., 0]
+            with span("physics.solve"):
+                return spd(M_pd, rhs[..., None].contiguous())[..., 0]
 
         def solve_M(B):
-            return spd(M, B.contiguous())
+            with span("physics.solve"):
+                return spd(M, B.contiguous())
 
     torque = compute_torque(model, qpos, qvel, ctrl_joint, base_pos, C,
                             solve_A, jkp, jkd)
@@ -615,6 +630,7 @@ def substep(model: PhysicsModel, state: SimState, ctrl_joint, vf, base_pos,
                     obj_qpos=obj_qpos_new, obj_qvel=obj_qvel_new)
 
 
+@spanned("physics.control_step")
 def control_step(model: PhysicsModel, state: SimState, action: torch.Tensor,
                  expert_kin_pose: torch.Tensor, base_rot: torch.Tensor,
                  obj_qpos: torch.Tensor | None = None,

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from kinpoly_tpu_torch.core import tmath
+from kinpoly_tpu_torch.utils.profiling import count, spanned
 
 
 class FKResult(NamedTuple):
@@ -25,8 +26,11 @@ class DofFrames(NamedTuple):
     anchor: torch.Tensor  # (..., 75, 3) world anchor per dof
 
 
+@spanned("physics.fk")
 def fk(st, qpos: torch.Tensor) -> FKResult:
-    """qpos (..., 76) -> world body frames; `st` is a SpecTensors."""
+    """qpos (..., 76) -> world body frames; `st` is a SpecTensors. Each
+    call adds 1 to ``COUNTS["fk"]``."""
+    count("fk")
     B = len(st.parents)
     root_pos = qpos[..., 0:3]
     root_quat = tmath.quat_norm(qpos[..., 3:7])
@@ -45,6 +49,7 @@ def fk(st, qpos: torch.Tensor) -> FKResult:
     return FKResult(xpos=xpos, xquat=xquat, xipos=xipos)
 
 
+@spanned("physics.dof_frames")
 def dof_frames(st, qpos: torch.Tensor, fk_res: FKResult) -> DofFrames:
     """Per-dof world axes and anchors, as MuJoCo's sequential hinges: the y
     hinge axis is turned by the z hinge, the x hinge by z then y."""

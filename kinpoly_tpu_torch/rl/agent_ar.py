@@ -63,6 +63,7 @@ from kinpoly_tpu_torch.rl import running_norm as rn
 from kinpoly_tpu_torch.rl.agent_uhc import UHCTrainConfig, make_policy
 from kinpoly_tpu_torch.rl.optim import AdamChain, global_norm
 from kinpoly_tpu_torch.utils.liveness import grad_nonfinite_fraction
+from kinpoly_tpu_torch.utils.profiling import span
 
 
 def load_uhc(path: str, device, dtype: torch.dtype = torch.float32,
@@ -181,16 +182,20 @@ class AgentAR:
 
     @contextlib.contextmanager
     def _phase(self, name: str):
-        if not self.time_phases:
+        """The span ``ar.<name>``; with ``time_phases`` also the phase's
+        synchronised seconds, added to ``phase_s``."""
+        with span(f"ar.{name}"):
+            if not self.time_phases:
+                yield
+                return
+            sync = (torch.cuda.synchronize if self.device.type == "cuda"
+                    else lambda: None)
+            sync()
+            t0 = time.perf_counter()
             yield
-            return
-        sync = (torch.cuda.synchronize if self.device.type == "cuda"
-                else lambda: None)
-        sync()
-        t0 = time.perf_counter()
-        yield
-        sync()
-        self.phase_s[name] = self.phase_s.get(name, 0.0) + time.perf_counter() - t0
+            sync()
+            self.phase_s[name] = (self.phase_s.get(name, 0.0)
+                                  + time.perf_counter() - t0)
 
     def _get_batch(self, batch_size: int, **kw) -> ClipData:
         """`batch_size` windows (tensors; `take_idx` int64)."""

@@ -26,6 +26,7 @@ from kinpoly_tpu_torch.models import nets, weights
 from kinpoly_tpu_torch.rl import gae, ppo
 from kinpoly_tpu_torch.rl import rollout as ro
 from kinpoly_tpu_torch.rl import running_norm as rn
+from kinpoly_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -114,25 +115,26 @@ class UHCAgent:
         cfg, norm = self.cfg, self.norm
         self._carry, traj = self._rollout(self._carry, norm, clip_probs,
                                           self.generator, noise_rate_t=noise_rate)
-        self.norm = rn.update_batch(norm, traj.raw_obs)
-        T, N = traj.rewards.shape
-        with torch.no_grad():
-            values = self.value(traj.obs)
-            # bootstrap the cut tails with V of the carried obs (old stats)
-            bootstrap = self.value(rn.apply(norm, self._carry.obs))
-        adv, ret = gae.estimate_advantages(traj.rewards, traj.masks, values,
-                                           cfg.gamma, cfg.tau, bootstrap)
-        flat = lambda x: x.reshape((T * N,) + x.shape[2:])
-        metrics = ppo.ppo_update(
-            self.policy, self.value, self.ppo_cfg, self.policy_opt,
-            self.value_opt, self.generator, flat(traj.obs), flat(traj.actions),
-            flat(adv), flat(ret), flat(traj.log_probs))
-        metrics.update(
-            reward_mean=traj.rewards.mean(),
-            episode_done=traj.masks.numel() - traj.masks.sum(),
-            fail_frac=traj.fails.to(traj.rewards.dtype).mean(),
-            # per-component decomposition of the reward (5 to 7 terms)
-            reward_components=traj.reward_info.mean(dim=(0, 1)))
+        with span("uhc.update"):
+            self.norm = rn.update_batch(norm, traj.raw_obs)
+            T, N = traj.rewards.shape
+            with torch.no_grad():
+                values = self.value(traj.obs)
+                # bootstrap the cut tails with V of the carried obs (old stats)
+                bootstrap = self.value(rn.apply(norm, self._carry.obs))
+            adv, ret = gae.estimate_advantages(traj.rewards, traj.masks, values,
+                                               cfg.gamma, cfg.tau, bootstrap)
+            flat = lambda x: x.reshape((T * N,) + x.shape[2:])
+            metrics = ppo.ppo_update(
+                self.policy, self.value, self.ppo_cfg, self.policy_opt,
+                self.value_opt, self.generator, flat(traj.obs),
+                flat(traj.actions), flat(adv), flat(ret), flat(traj.log_probs))
+            metrics.update(
+                reward_mean=traj.rewards.mean(),
+                episode_done=traj.masks.numel() - traj.masks.sum(),
+                fail_frac=traj.fails.to(traj.rewards.dtype).mean(),
+                # per-component decomposition of the reward (5 to 7 terms)
+                reward_components=traj.reward_info.mean(dim=(0, 1)))
         return metrics, traj.percents, traj.clips, traj.masks == 0
 
     def clip_probs(self) -> np.ndarray:
@@ -151,36 +153,40 @@ class UHCAgent:
         """One PPO iteration. `adaptive` = ``UHCConfig.adaptive_params(i)``:
         {noise_rate, log_std, policy_lr}; log_std applies only with
         ``fix_std=False`` (a ``log_std`` parameter)."""
-        t0 = time.time()
-        cfg = self.cfg
-        noise_rate = cfg.noise_rate
-        if adaptive is not None:
-            noise_rate = adaptive.get("noise_rate", noise_rate)
-            if not cfg.fix_std and "log_std" in adaptive:
-                self._set_log_std(adaptive["log_std"])
-            if "policy_lr" in adaptive:
-                ppo.set_policy_lr(self.policy_opt, adaptive["policy_lr"])
-        probs = torch.as_tensor(self.clip_probs(), device=self.env.model.device)
-        if self._carry is None:
-            self._carry = ro.init_rollout_state(self.env, self.generator,
-                                                cfg.n_envs, probs)
-        metrics, percents, clips, dones = self._train_iter(probs, noise_rate)
+        with span("uhc.train_epoch", str(self.epoch)):
+            t0 = time.time()
+            cfg = self.cfg
+            noise_rate = cfg.noise_rate
+            if adaptive is not None:
+                noise_rate = adaptive.get("noise_rate", noise_rate)
+                if not cfg.fix_std and "log_std" in adaptive:
+                    self._set_log_std(adaptive["log_std"])
+                if "policy_lr" in adaptive:
+                    ppo.set_policy_lr(self.policy_opt, adaptive["policy_lr"])
+            probs = torch.as_tensor(self.clip_probs(), device=self.env.model.device)
+            if self._carry is None:
+                self._carry = ro.init_rollout_state(self.env, self.generator,
+                                                    cfg.n_envs, probs)
+            metrics, percents, clips, dones = self._train_iter(probs, noise_rate)
 
-        # the one host fetch of the iteration
-        metrics = {k: v.cpu().numpy() for k, v in metrics.items()}
-        percents, clips, dones = (x.cpu().numpy() for x in (percents, clips, dones))
-        a = cfg.sampling_freq
-        for c, p in zip(clips[dones], percents[dones]):
-            self.success_ewma[c] = (p if not self.seen[c]
-                                    else a * self.success_ewma[c] + (1 - a) * p)
-            self.seen[c] = True
+            # the one host fetch of the iteration
+            with span("uhc.host_fetch"):
+                metrics = {k: v.cpu().numpy() for k, v in metrics.items()}
+                percents, clips, dones = (x.cpu().numpy()
+                                          for x in (percents, clips, dones))
+                a = cfg.sampling_freq
+                for c, p in zip(clips[dones], percents[dones]):
+                    self.success_ewma[c] = (
+                        p if not self.seen[c]
+                        else a * self.success_ewma[c] + (1 - a) * p)
+                    self.seen[c] = True
 
-        self.epoch += 1
-        out = {k: (v.tolist() if v.ndim else float(v)) for k, v in metrics.items()}
-        out["T_iter"] = time.time() - t0
-        if self.out_dir and self.epoch % cfg.save_model_interval == 0:
-            self.save_checkpoint()
-        return out
+            self.epoch += 1
+            out = {k: (v.tolist() if v.ndim else float(v)) for k, v in metrics.items()}
+            out["T_iter"] = time.time() - t0
+            if self.out_dir and self.epoch % cfg.save_model_interval == 0:
+                self.save_checkpoint()
+            return out
 
     # -- checkpoints ---------------------------------------------------
 

@@ -14,6 +14,7 @@ from torch import nn
 
 from kinpoly_tpu_torch.models import nets
 from kinpoly_tpu_torch.parallel.mesh import pmean_grads_
+from kinpoly_tpu_torch.utils.profiling import span, spanned
 
 
 class PPOConfig(NamedTuple):
@@ -64,20 +65,22 @@ def _step(opt: torch.optim.Optimizer, loss: torch.Tensor, max_norm: float,
     params = [p for g in opt.param_groups for p in g["params"]]
     if group is not None:
         pmean_grads_(params, group)
-    clip_by_global_norm_(params, max_norm)
-    if lr_mult == 1.0:
+    with span("optim.step"):
+        clip_by_global_norm_(params, max_norm)
+        if lr_mult == 1.0:
+            opt.step()
+            return
+        # lr_mult scales Adam's update, not the gradient (which Adam would
+        # normalise away)
+        lrs = [g["lr"] for g in opt.param_groups]
+        for g in opt.param_groups:
+            g["lr"] = g["lr"] * lr_mult
         opt.step()
-        return
-    # lr_mult scales Adam's update, not the gradient (which Adam would
-    # normalise away)
-    lrs = [g["lr"] for g in opt.param_groups]
-    for g in opt.param_groups:
-        g["lr"] = g["lr"] * lr_mult
-    opt.step()
-    for g, lr in zip(opt.param_groups, lrs):
-        g["lr"] = lr
+        for g, lr in zip(opt.param_groups, lrs):
+            g["lr"] = lr
 
 
+@spanned("ppo.update")
 def ppo_update(policy: nn.Module, value: nn.Module, cfg: PPOConfig,
                policy_opt: torch.optim.Optimizer,
                value_opt: torch.optim.Optimizer, generator: torch.Generator,

@@ -20,6 +20,7 @@ import torch
 from kinpoly_tpu_torch.envs.humanoid_im import EnvState, HumanoidImEnv, select
 from kinpoly_tpu_torch.models import nets
 from kinpoly_tpu_torch.rl import running_norm as rn
+from kinpoly_tpu_torch.utils.profiling import span, spanned
 
 
 class Trajectory(NamedTuple):
@@ -72,20 +73,24 @@ def make_rollout(env: HumanoidImEnv, policy: Callable, n_steps: int,
     (the draws are still made, so the generator's stream is the same)."""
 
     @torch.no_grad()
+    @spanned("uhc.rollout")
     def rollout(carry: RolloutState, norm: rn.RunningNorm,
                 clip_probs: torch.Tensor, generator: torch.Generator,
                 noise_rate_t: float | None = None, mean_action: bool = False):
         nr = noise_rate if noise_rate_t is None else noise_rate_t
         traj = None
         for t in range(n_steps):
-            obs_n = rn.apply(norm, carry.obs)
-            mean, log_std = policy(obs_n)
-            n_envs = mean.shape[0]
-            draw = dict(generator=generator, dtype=mean.dtype, device=mean.device)
-            explore = (torch.rand(n_envs, **draw) < nr) & (not mean_action)
-            noise = torch.randn(mean.shape, **draw)
-            action = mean + explore[:, None].to(mean.dtype) * torch.exp(log_std) * noise
-            log_prob = nets.gaussian_log_prob(action, mean, log_std)
+            with span("uhc.policy"):
+                obs_n = rn.apply(norm, carry.obs)
+                mean, log_std = policy(obs_n)
+                n_envs = mean.shape[0]
+                draw = dict(generator=generator, dtype=mean.dtype,
+                            device=mean.device)
+                explore = (torch.rand(n_envs, **draw) < nr) & (not mean_action)
+                noise = torch.randn(mean.shape, **draw)
+                action = (mean + explore[:, None].to(mean.dtype)
+                          * torch.exp(log_std) * noise)
+                log_prob = nets.gaussian_log_prob(action, mean, log_std)
 
             cur_clips = carry.env_state.clip_idx
             env_state, obs, reward, done, info = env.step(carry.env_state, action)

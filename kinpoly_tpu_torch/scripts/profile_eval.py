@@ -33,22 +33,37 @@ the profiler. The defaults of ``AR_DEFAULTS`` per config: kin_poly
 ``wild_takes_r5_of.pkl`` and ``action_takes_of.pkl``.
 
 Prints the host wall time per control step, the device's busy share
-(union of kernel intervals over the profiled wall time), device activities
-and host-device synchronisations per control step, and the kernels and
-operators with the most device time. Needs a CUDA device.
+(union of kernel intervals over the profiled wall time), the trace's busy
+and idle ms, device activities, host-device synchronisations and the
+port's host counters (``profiling.COUNTS``: ``fk``, FK calls) per control
+step, the kernels and operators with the most device time, and a table
+of the port's spans (``utils/profiling.py``, on while profiling; their
+layers in ``GROUPS``): per control step, each span's calls and, of the
+work it did itself (not in a span nested in it), its device ms (the busy
+union of the activities launched while it was the innermost span open),
+the device's idle ms while it was innermost on the host, its activities
+and host-device syncs; then the same summed by layer. The profiler's
+user annotations (the spans, ``Optimizer.step#...``) are left out of the
+busy union, the activity count and the operator table; an annotation
+not in ``GROUPS`` is no span. ``--trace`` writes a Chrome trace that
+carries the spans. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import time
+from collections import Counter
 
 import torch
+from torch.autograd.profiler_util import EventList
 from torch.profiler import ProfilerActivity, profile
 
 from kinpoly_tpu_torch.config.defaults import UHCConfig
 from kinpoly_tpu_torch.scripts.eval_uhc import build_agent, get_takes
 from kinpoly_tpu_torch.scripts.train_uhc import build_trainer
+from kinpoly_tpu_torch.utils import profiling
 
 AR_PROFILE_STEPS = 8
 # per named config: (evaluation bank, training bank, checkpoint, output root)
@@ -71,28 +86,175 @@ def _busy_us(intervals: list[tuple[float, float]]) -> float:
     return busy
 
 
+# The port's spans (``utils/profiling.py``) and the layer each belongs to.
+# The profiler's other user annotations (``Optimizer.step#Adam.step``)
+# are no spans: what runs inside them goes to the span around them.
+GROUPS = {
+    "uhc.train_epoch": "loop", "uhc.rollout": "loop", "uhc.host_fetch": "loop",
+    "uhc.policy": "policy",
+    "env.step": "env", "env.observe": "env", "env.reward": "env",
+    "env.reset": "env",
+    "physics.fk": "fk",
+    "physics.dof_frames": "dynamics", "physics.bias_force": "dynamics",
+    "physics.crba": "dynamics", "physics.substep": "dynamics",
+    "physics.control_step": "dynamics",
+    "physics.contact_plan": "contacts", "physics.contacts": "contacts",
+    "physics.factor": "solve", "physics.solve": "solve", "physics.pgs": "solve",
+    "uhc.update": "ppo", "ppo.update": "ppo",
+    "optim.step": "optim",
+    "ar.context": "ar", "ar.rollout": "ar", "ar.ppo": "ar", "ar.bc": "ar",
+    "ar.controller": "ar",
+}
+NO_SPAN = "(no span)"
+
+
+class _Innermost:
+    """The innermost of (nested) host spans open at each moment."""
+
+    def __init__(self, spans: list):
+        marks = sorted([(e.time_range.start, 1, -e.time_range.end, i)
+                        for i, e in enumerate(spans)]
+                       + [(e.time_range.end, 0, 0, i)
+                          for i, e in enumerate(spans)])
+        self.starts, self.names, open_ = [], [], []
+        for t, is_start, _, i in marks:
+            if is_start:
+                open_.append(i)
+            else:
+                open_.remove(i)
+            self.starts.append(t)
+            self.names.append(spans[open_[-1]].name if open_ else NO_SPAN)
+
+    def at(self, t: float) -> str:
+        i = bisect.bisect_right(self.starts, t) - 1
+        return self.names[i] if i >= 0 else NO_SPAN
+
+    def split(self, a: float, b: float) -> Counter:
+        """Length of [a, b] under each innermost span."""
+        lo = bisect.bisect_right(self.starts, a)
+        hi = bisect.bisect_left(self.starts, b)
+        cuts = [a, *self.starts[lo:hi], b]
+        out = Counter()
+        for x, y in zip(cuts, cuts[1:]):
+            out[self.at(x)] += y - x
+        return out
+
+
+def _gaps(intervals: list[tuple[float, float]], t0: float, t1: float):
+    """The stretches of [t0, t1] that no interval covers."""
+    end = t0
+    for a, b in sorted(intervals):
+        if a > end:
+            yield end, a
+        end = max(end, b)
+    if t1 > end:
+        yield end, t1
+
+
+def device_activities(events) -> list:
+    """The trace's device activities: its CUDA-typed events but the user
+    annotations, whose device twins span the idle time inside them."""
+    return [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation]
+
+
+def span_table(events, steps: int) -> list:
+    """Rows (span, calls, device ms, idle ms, activities, syncs), each per
+    control step, by device ms: what ran, and how long the device waited,
+    while each span was the innermost one open. A device activity goes to
+    the span open when the runtime call that launched it (same correlation
+    id) started; autograd's device threads launch the backward's kernels
+    while the caller waits in its span. Each idle gap of the trace (from
+    its first event to its last device activity) is split by overlap among
+    the spans innermost on the host during it."""
+    cpu = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+    spans = [e for e in cpu if e.is_user_annotation and e.name in GROUPS]
+    inner = _Innermost(spans)
+    runtime = {e.id: e for e in cpu if e.name.startswith("cu")}
+    iv, acts, syncs, idle = {}, Counter(), Counter(), Counter()
+    kernels = device_activities(events)
+    for k in kernels:
+        call = runtime.get(k.id)
+        name = inner.at((call or k).time_range.start)
+        iv.setdefault(name, []).append((k.time_range.start, k.time_range.end))
+        acts[name] += 1
+    for e in cpu:
+        if e.name in _SYNC_CALLS:
+            syncs[inner.at(e.time_range.start)] += 1
+    if kernels:
+        every = [x for xs in iv.values() for x in xs]
+        t0 = min(e.time_range.start for e in events)
+        for a, b in _gaps(every, t0, max(b for _, b in every)):
+            idle.update(inner.split(a, b))
+    calls = Counter(e.name for e in spans)
+    rows = [(name, calls[name] / steps,
+             _busy_us(iv.get(name, [])) / 1e3 / steps, idle[name] / 1e3 / steps,
+             acts[name] / steps, syncs[name] / steps)
+            for name in set(calls) | set(acts) | set(syncs) | set(idle)]
+    return sorted(rows, key=lambda r: -r[2])
+
+
+def group_table(rows: list) -> list:
+    """`span_table`'s rows summed by layer (``GROUPS``; "none" outside
+    every span): (group, device ms, idle ms, activities, syncs)."""
+    sums = {}
+    for name, _, *cols in rows:
+        g = GROUPS.get(name, "none")
+        sums[g] = [a + b for a, b in zip(sums.get(g, [0.0] * 4), cols)]
+    return sorted(((g, *cols) for g, cols in sums.items()),
+                  key=lambda r: -r[1])
+
+
 def profiled(fn, steps: int, what: str, trace: str | None = None) -> None:
-    """Run fn() once under the profiler and print where its time went,
-    per control step of its `steps`."""
+    """Run fn() once under the profiler, with the port's spans on, and
+    print where its time went, per control step of its `steps`."""
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    counts = Counter(profiling.COUNTS)
+    profiling.enable(True)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        profiling.enable(False)
+    counts = profiling.COUNTS - counts
     events = prof.events()
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = device_activities(events)
     busy = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
+    span_us = (max(e.time_range.end for e in kernels)
+               - min(e.time_range.start for e in events))
     syncs = {n: sum(1 for e in events if e.name == n) for n in _SYNC_CALLS}
     print(f"device: {torch.cuda.get_device_name(0)}")
     print(f"{what}: {wall:.3f} s, {wall / steps * 1e3:.1f} ms per control step "
           f"(host wall, profiler on), device busy {busy / 1e6 / wall:.1%}, "
           f"{len(kernels) / steps:.0f} device activities per step")
+    print(f"trace per control step: busy {busy / 1e3 / steps:.3f} ms, idle "
+          f"{(span_us - busy) / 1e3 / steps:.3f} ms (first event to last "
+          f"device activity)")
     print("host-device syncs per step: " + ", ".join(
         f"{n} {c / steps:.1f}" for n, c in syncs.items() if c))
+    print("counters per step: " + ", ".join(
+        f"{n} {c / steps:.1f}" for n, c in sorted(counts.items())))
+    ops = EventList([a for a in prof.key_averages()
+                     if not a.is_user_annotation], use_device="cuda")
     key = "self_device_time_total" if hasattr(
-        prof.key_averages()[0], "self_device_time_total") else "self_cuda_time_total"
-    print(prof.key_averages().table(sort_by=key, row_limit=25))
+        ops[0], "self_device_time_total") else "self_cuda_time_total"
+    print(ops.table(sort_by=key, row_limit=25))
+    rows = span_table(events, steps)
+    print(f"{'span':<24} {'calls':>8} {'device ms':>10} {'idle ms':>10} "
+          f"{'activities':>11} {'syncs':>6}   (per control step, own work)")
+    for name, n, ms, idle, a, sy in rows:
+        print(f"{name:<24} {n:>8.1f} {ms:>10.3f} {idle:>10.3f} {a:>11.1f} "
+              f"{sy:>6.1f}")
+    print(f"{'group':<24} {'':>8} {'device ms':>10} {'idle ms':>10} "
+          f"{'activities':>11} {'syncs':>6}   (the spans above by layer)")
+    for g, ms, idle, a, sy in group_table(rows):
+        print(f"{g:<24} {'':>8} {ms:>10.3f} {idle:>10.3f} {a:>11.1f} "
+              f"{sy:>6.1f}")
     if trace:
         prof.export_chrome_trace(trace)
 

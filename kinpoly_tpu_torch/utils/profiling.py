@@ -1,55 +1,57 @@
-"""Profiling helpers (port of ``kinpoly_tpu/utils/profiling.py``): named
-phase timers whose totals go into the training logs, a ``torch.profiler``
-trace for TensorBoard, and ``annotate`` to name a span in that trace.
+"""The port's tracing: named spans at its layer boundaries, off by default,
+and host counters, always on.
+
+``span(name)`` is a ``torch.profiler.record_function`` range while
+tracing is on (``enable(True)``), so a span lands in the profiler's trace
+beside the device activities its layer launched, on the trace's clock.
+While tracing is off it costs one flag check and returns one shared null
+context. ``spanned(name)`` puts a function's every call inside
+``span(name)``. ``count(name, n)`` adds to ``COUNTS``, plain host
+integers: no span or counter reads a device value, so none synchronises.
+
+The span names are fixed and dotted (``physics.fk``, ``env.step``,
+``ppo.update``, ...; PERF.md lists each with its code site). Which spans
+belong to which layer is for the reader of the trace to decide.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
-import time
-from collections import defaultdict
+import functools
 
 import torch
 
+COUNTS: collections.Counter = collections.Counter()
 
-class PhaseTimer:
-    """Accumulates wall time per named phase (T_sample, T_update, ... in
-    the reference's logs). With ``sync=True`` a phase ends after the
-    timer's device has finished its queued work (``torch.cuda.
-    synchronize`` on a CUDA device; the CPU runs eagerly), as the JAX
-    timer waits on ``jax.effects_barrier``."""
-
-    def __init__(self, device=None):
-        self.device = torch.device(device) if device is not None else None
-        self.totals = defaultdict(float)
-        self.counts = defaultdict(int)
-
-    @contextlib.contextmanager
-    def phase(self, name: str, sync: bool = False):
-        t0 = time.perf_counter()
-        yield
-        if sync and self.device is not None and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.totals[name] += time.perf_counter() - t0
-        self.counts[name] += 1
-
-    def summary(self) -> dict:
-        return {k: dict(total=v, mean=v / max(self.counts[k], 1))
-                for k, v in self.totals.items()}
+_on = False
+_NULL = contextlib.nullcontext()
 
 
-@contextlib.contextmanager
-def trace(log_dir: str):
-    """Record a ``torch.profiler`` trace of the block (CPU, and CUDA where
-    a device is present) into `log_dir`, readable by TensorBoard's
-    profiler plugin and Perfetto."""
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(
-            activities=acts,
-            on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir)):
-        yield
+def enable(on: bool) -> None:
+    """Turn spans on or off for the whole process."""
+    global _on
+    _on = bool(on)
 
 
-annotate = torch.profiler.record_function
+def span(name: str, args: str | None = None):
+    """A context manager: a profiler range named `name` (with the string
+    `args` attached) while tracing is on, else the shared null context."""
+    if not _on:
+        return _NULL
+    return torch.profiler.record_function(name, args)
+
+
+def spanned(name: str):
+    """Decorator: every call of the function runs inside ``span(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*a, **kw):
+            with span(name):
+                return fn(*a, **kw)
+        return inner
+    return wrap
+
+
+def count(name: str, n: int = 1) -> None:
+    COUNTS[name] += n

@@ -1,13 +1,9 @@
-"""The port's host utilities (kinpoly_tpu_torch.utils.profiling, .flags,
-.native) against their JAX package counterparts on the CPU: PhaseTimer's
-totals, counts and summary; a torch.profiler trace written by ``trace``
-with an ``annotate`` span; the flags singleton; ``gather_windows`` equal to
-the JAX package's numpy path (float32, last-frame padding) and to its C++
-path where a compiler built it; ``parse_stl`` and ``mesh_mass_properties``
-with the JAX module's return shapes."""
-
-import os
-import time
+"""The port's host utilities (kinpoly_tpu_torch.utils.flags, .native)
+against their JAX package counterparts on the CPU: the flags singleton;
+``gather_windows`` equal to the JAX package's numpy path (float32,
+last-frame padding) and to its C++ path where a compiler built it;
+``parse_stl`` and ``mesh_mass_properties`` with the JAX module's return
+shapes. The port's tracing is tested in ``test_torch_spans.py``."""
 
 import numpy as np
 import pytest
@@ -15,40 +11,11 @@ import torch
 
 from kinpoly_tpu.utils import flags as jflags
 from kinpoly_tpu.utils import native as jnative
-from kinpoly_tpu.utils import profiling as jprof
 from kinpoly_tpu_torch.anim import stl
 from kinpoly_tpu_torch.utils import flags as tflags
 from kinpoly_tpu_torch.utils import native as tnative
-from kinpoly_tpu_torch.utils import profiling as tprof
 
 torch.set_num_threads(1)
-
-
-def test_phase_timer_accumulates_as_jax():
-    timers = (jprof.PhaseTimer(), tprof.PhaseTimer(device="cpu"))
-    for t in timers:
-        for _ in range(3):
-            with t.phase("sample"):
-                time.sleep(0.01)
-        with t.phase("update", sync=True):
-            pass
-    (js, ts) = (t.summary() for t in timers)
-    assert sorted(js) == sorted(ts) == ["sample", "update"]
-    assert timers[0].counts == timers[1].counts == {"sample": 3, "update": 1}
-    assert ts["sample"]["total"] >= 0.03
-    assert abs(ts["sample"]["mean"] - ts["sample"]["total"] / 3) < 1e-12
-    assert tprof.PhaseTimer().device is None
-
-
-def test_trace_writes_a_profile(tmp_path):
-    with tprof.trace(str(tmp_path)):
-        with tprof.annotate("span"):
-            torch.ones(8).sum()
-    files = [f for _, _, fs in os.walk(tmp_path) for f in fs]
-    assert any(f.endswith(".pt.trace.json") for f in files), files
-    text = open(next(os.path.join(d, f) for d, _, fs in os.walk(tmp_path)
-                     for f in fs if f.endswith(".json"))).read()
-    assert '"span"' in text
 
 
 def test_flags_singleton_as_jax():
