@@ -12,7 +12,14 @@ Phases, one line each with its seconds:
               and on the JAX kernel tests' kind of input, checks the error
               against the JAX tests' tolerances, and times kernel, plain
               version, bound and the nearest PyTorch call; K2 and K3 also
-              at the objects slice's shapes (R = 49, 79; C = 72, 108)
+              at the objects slice's shapes (R = 49, 79; C = 72, 108);
+              K5 (FK, and FK with the dof frames) on seeded poses at 1024
+              and 2048 envs, bitwise against the plain code, timed graph-replayed
+              and through its wrapper. K5 runs wherever FK runs on the
+              card without a gradient, so the exact launch counts of the
+              phases below are of the solver kernels K1-K4c
+              (solver_launches); K5's are in each kernel's
+              launches_by_path
   4. slice    loads the trained UHC checkpoint iter_13000.p and evaluates
               it for 60 control steps on the 24 takes of 150 frames of the
               real bank data_bank/clips24.pkl (read by the port's bank
@@ -124,8 +131,7 @@ Phases, one line each with its seconds:
               eval_pose_all on phase 10's records written to a temporary
               directory as eval_ar_policy writes them: its mean row equals
               phase 10's within 1e-6
- 14. data     the data path (no kernel on it; the counters are read and
-              stay 0): (a) ground_legs and ground_arms on the first 4 takes
+ 14. data     the data path (no solver kernel on it; K5 under its FK): (a) ground_legs and ground_arms on the first 4 takes
               of clips24, the grid search's batched FK card f32 against
               CPU f64: the delta picked must agree on every frame whose
               grid margin (|min z - clearance|, and for a frame no delta
@@ -144,8 +150,9 @@ Phases, one line each with its seconds:
               rounding step from the CPU's; ms per file;
               (d) the three fine_tune rewards on 1024 seeded envs, card
               f32 against CPU f64 within 1e-5
- 15. zoo      the rest of anim, the model zoo, TRPO and A2C (no kernel on
-              it; the counters are read and stay 0): (a) lbs of
+ 15. zoo      the rest of anim, the model zoo, TRPO and A2C (no solver
+              kernel on it, the counters are read and stay 0; K5 under the
+              occupancy's FK): (a) lbs of
               synthetic_model at SMPL's 6890 vertices on 150 seeded frames,
               vertices and joints card f32 within 1e-4 m of CPU f64; ms per
               frame; (b) fit_qpos, 300 Adam steps from standing_pose on the
@@ -439,6 +446,85 @@ def chol_bound(n_env: int, n: int, nr: int, factor: bool, l_out: bool):
     n_bytes = 4 * n_env * (tri + 2 * n * nr + (n * n if l_out else 0))
     n_flop = n_env * ((n ** 3 / 3 if factor else 0) + 2 * n * n * nr)
     return bound_ms(n_bytes, n_flop)
+
+
+def solver_launches(launches: dict) -> dict:
+    """The launches of the solver kernels K1-K4c. K5 (``fk_tree``, with
+    the frames ``fk_tree[frames]``) runs wherever FK runs on the card
+    without a gradient, so the paths' exact counts leave it out; each
+    path's K5 launches are in ``launches_by_path``."""
+    return {k: v for k, v in launches.items() if not k.startswith("fk_tree")}
+
+
+def check_fk_kernel(device) -> tuple[list[dict], str]:
+    """K5, both modes, against the plain code on the card at the cell's
+    1024 envs and the table's 2048: seeded poses of the synthetic
+    humanoid (unnormalised roots, hinges up to +-4 pi), every output bit
+    for bit the plain code's; ms per call of the kernel (graph-replayed,
+    and through its wrapper) and of the plain code, and the byte bound:
+    the qpos row read, xpos, xquat and xipos written (and the 75 axes and
+    anchors with the frames). The flops (~130 per body, ~330 with the
+    frames: the products, rotations and sines) are far below the bytes."""
+    import torch
+    from kinpoly_tpu_torch.anim.spec import spec_tensors, synthetic_spec
+    from kinpoly_tpu_torch.physics import fk as fklib
+
+    st = spec_tensors(synthetic_spec(0), torch.float32, device)
+    n_body = len(st.parents)
+    rng = np.random.RandomState(22)
+    rows, msgs = {}, []
+    for n in (1024, N_ENVS):
+        q = np.zeros((n, 76))
+        q[:, :3] = rng.uniform(-1.0, 1.0, (n, 3))
+        q[:, 3:7] = rng.normal(0, 1, (n, 4))
+        q[:, 7:] = rng.uniform(-4 * np.pi, 4 * np.pi, (n, 69))
+        qpos = torch.tensor(q, dtype=torch.float32, device=device)
+
+        def kernel(frames):
+            if frames:
+                res, df = fklib.fk_frames(st, qpos)
+                return tuple(res) + tuple(df)
+            return tuple(fklib.fk(st, qpos))
+
+        def plain(frames):
+            res = fklib._fk_plain(st, qpos)
+            return tuple(res) + (tuple(fklib.dof_frames(st, qpos, res))
+                                 if frames else ())
+
+        for frames in (False, True):
+            name = "fk_tree[frames]" if frames else "fk_tree"
+            n_diff = sum(int((g != r).sum()) for g, r in
+                         zip(kernel(frames), plain(frames)))
+            if n_diff:
+                fail(f"{name} at N={n}: {n_diff} outputs differ from the "
+                     f"plain code's (K5 reproduces its float32 operations)")
+            # a call's host work (checks, five allocations, the ctypes call)
+            # outlasts its launch: the events time the wrapper, a CUDA graph
+            # of 20 calls the device
+            wrapper_ms = cuda_ms(lambda: kernel(frames), 50)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                for _ in range(20):
+                    kernel(frames)
+            ms = cuda_ms(graph.replay, 10) / 20
+            plain_ms = cuda_ms(lambda: plain(frames), 5)
+            out_floats = n_body * 10 + (2 * 3 * 75 if frames else 0)
+            b, by = bound_ms(4 * n * (76 + out_floats),
+                             n * n_body * (330 if frames else 130))
+            msgs.append(f"{name} N={n} {ms:.4f} ms graph-replayed, wrapper "
+                        f"{wrapper_ms:.4f} (plain {plain_ms:.3f}, bound {b:.5f}), "
+                        f"bitwise equal to the plain code")
+            row = rows.setdefault(name, dict(
+                name=name, route="cuda", source="kinpoly_tpu_torch/csrc/fk.cu",
+                replaces="none (kinpoly_tpu/physics/fk.py is plain jnp)",
+                launches=None, library_ms=None, library=None))
+            if n == N_ENVS:
+                row.update(max_abs_err=0.0, ms=ms, wrapper_ms=wrapper_ms,
+                           plain_ms=plain_ms, bound_ms=b, bound_by=by)
+            else:
+                row.update(ms_n1024=ms, wrapper_ms_n1024=wrapper_ms,
+                           plain_ms_n1024=plain_ms, bound_ms_n1024=b)
+    return list(rows.values()), " | ".join(msgs)
 
 
 def check_chol_kernels(dense_model, device) -> tuple[list[dict], list[str]]:
@@ -1598,11 +1684,11 @@ def zoo_phase(device, kernels: list) -> None:
         fail(f"RL updates differ from the CPU's: TRPO {rl['trpo_err']:.3g}, "
              f"A2C gradients {rl['a2c_grad_err']:.3g}, losses {rl['a2c_loss_err']:.3g}")
 
-    # (f) no kernel lies on this path
+    # (f) no solver kernel lies on this path
     launched = dict(native.LAUNCHES)
     say("zoo", f"(f) kernel launches in this phase {launched}", tp)
-    if launched:
-        fail(f"the zoo phase launched kernels: {launched}")
+    if solver_launches(launched):
+        fail(f"the zoo phase launched solver kernels: {launched}")
     for k in kernels:
         k["launches_by_path"]["zoo"] = native.LAUNCHES.get(k["name"], 0)
 
@@ -1776,7 +1862,7 @@ def dp_phase(here: str, takes: dict, one_proc_ms: float, ar_rows: dict,
                     f"{m['ppo_grad_norm']:.4g} bc_nan_frac "
                     f"{m['bc_nan_frac']:.2f}" for m in x["metrics"])
                 + f"; controller moved {x['cc_moved']:.3g}", tp)
-            if x["launches"] != expect:
+            if solver_launches(x["launches"]) != expect:
                 fail(f"AR rank {r} launches {x['launches']} != {expect}")
             if any(g != (g[0], 0.0) for g in x["ctx_gaps"]):
                 fail(f"AR rank {r}: the contexts differ after the broadcast")
@@ -1824,7 +1910,7 @@ def check_dp_uhc(tag: str, res: list, n_ranks: int, steps: int,
             f"{counts}); nets' gap between ranks {x['gaps']}; losses "
             f"{x['losses']}; policy moved {x['moved']:.3g}; launches "
             f"{x['launches']} (expected {expect})", tp)
-        if x["launches"] != expect:
+        if solver_launches(x["launches"]) != expect:
             fail(f"{tag} rank {r} launches {x['launches']} != {expect}")
         if x["counts"] != counts:
             fail(f"{tag} rank {r} norm counts {x['counts']} != {counts}")
@@ -2031,6 +2117,11 @@ def main() -> None:
     kernels += chol_kernels
     say("kernels", f"N={N_ENVS}, dense: " + " | ".join(msgs), tp)
 
+    tp = time.perf_counter()
+    fk_kernels, msg = check_fk_kernel(device)
+    kernels += fk_kernels
+    say("kernels", f"K5 (FK and the dof frames): {msg}", tp)
+
     # 4. the slice: UHC evaluation on the real bank through the kernels ---
     tp = time.perf_counter()
     takes = get_takes(os.path.join(here, CLIPS24))
@@ -2054,7 +2145,7 @@ def main() -> None:
         f"{float(np.mean(info['percent'])):.1%}, "
         f"{run_s / steps * 1e3:.1f} ms per control step, launches {launches} "
         f"(expected {expect}), finite {finite}", tp)
-    if launches != expect:
+    if solver_launches(launches) != expect:
         fail(f"kernel launches {launches} != {expect}")
     if not finite or tuple(st.qpos.shape) != (len(takes), 76):
         fail("non-finite or misshapen state after the evaluation")
@@ -2111,7 +2202,7 @@ def main() -> None:
         f"launches {tr['launches']} (expected {expect}); finite "
         f"{tr['finite']}; policy moved {tr['moved']:.3g}; checkpoint "
         f"round trip identical {same}", tp)
-    if tr["launches"] != expect:
+    if solver_launches(tr["launches"]) != expect:
         fail(f"training launches {tr['launches']} != {expect}")
     if [m["step"] for m in tr["metrics"]] != list(range(TRAIN_ITERS)):
         fail(f"metrics stream holds {len(tr['metrics'])} lines, not one per "
@@ -2150,7 +2241,7 @@ def main() -> None:
         f"ms; launches {tr['launches']} (expected {expect}); finite "
         f"{tr['finite']}; one control step card f32 vs CPU f64 max abs err "
         f"{derr:.3g} (tol {PARITY_ATOL})", tp)
-    if tr["launches"] != expect:
+    if solver_launches(tr["launches"]) != expect:
         fail(f"dense training launches {tr['launches']} != {expect}")
     if not tr["finite"]:
         fail("non-finite loss, reward or state in dense training")
@@ -2163,7 +2254,8 @@ def main() -> None:
     # launches x ms at N = 2048 over the kernels of the dense path (K4a at
     # both widths, K3), per control step of the dense training run
     ms_of = {k["name"]: k["ms"] for k in kernels}
-    d_ms = sum(c * ms_of[name] for name, c in tr["launches"].items()) / n
+    d_ms = sum(c * ms_of[name] for name, c
+               in solver_launches(tr["launches"]).items()) / n
     say("dense", f"dense kernel time per control step at N={N_ENVS}: "
         f"{d_ms:.3f} ms (sum of launches x ms over {n} control steps)", tp)
     del tr
@@ -2221,7 +2313,7 @@ def main() -> None:
         f"(expected {expect}), finite {finite}; success "
         f"{summ['succ']}, mean tracked {summ['mean']['percent']:.3f}; MEAN "
         + " ".join(f"{k}:{v:.3f}" for k, v in summ["mean"].items()), tp)
-    if launches != expect:
+    if solver_launches(launches) != expect:
         fail(f"AR kernel launches {launches} != {expect}")
     if not finite or tuple(traj.obj_qpos.shape[1:]) != (ev.n_takes, 5, 7):
         fail("non-finite or misshapen humanoid or object state in the AR phase")
@@ -2234,7 +2326,8 @@ def main() -> None:
     # the AR path's kernels by launch counter (K3 runs at 72 rows there)
     ar_rows = {"ltdl_factor": "ltdl_factor", "ltdl_solve[R=1]": "ltdl_solve[R=1]",
                "ltdl_solve[R=49]": "ltdl_solve[R=49]",
-               "pgs_solve[C=72]": "pgs_solve"}
+               "pgs_solve[C=72]": "pgs_solve", "fk_tree": "fk_tree",
+               "fk_tree[frames]": "fk_tree[frames]"}
     for k in kernels + ar_k:
         k["launches_by_path"]["ar_eval"] = launches.get(
             ar_rows.get(k["name"], ""), 0)
@@ -2310,7 +2403,7 @@ def main() -> None:
         f"{ce['launches']} (expected {expect}); controller moved "
         f"{ce['cc_moved']:.3g}; checkpoint read back equal {ce['same']}; "
         f"peak memory {ce['peak']:.2f} GiB", tp)
-    if ce["launches"] != expect:
+    if solver_launches(ce["launches"]) != expect:
         fail(f"AR training launches {ce['launches']} != {expect}")
     if len(ms) != AR_TRAIN_EPOCHS or not finite:
         fail(f"AR training metrics missing or non-finite: {ms}")
@@ -2380,7 +2473,7 @@ def main() -> None:
         f"{launches} (expected {expect}), finite {finite}; coverage "
         f"{summ['coverage']:.4f}, success {summ['succ']}; MEAN "
         + " ".join(f"{k}:{v:.3f}" for k, v in summ["mean"].items()), tp)
-    if launches != expect:
+    if solver_launches(launches) != expect:
         fail(f"use_of kernel launches {launches} != {expect}")
     if not finite or tuple(traj.actions.shape[1:]) != (ev.n_takes, 76):
         fail("non-finite or misshapen state, action or reward in use_of")
@@ -2428,7 +2521,7 @@ def main() -> None:
         f"{ot['launches']} (expected {expect}); checkpoint params "
         f"{ot['layout']}, read back equal {ot['same']}; peak memory "
         f"{ot['peak']:.2f} GiB", tp)
-    if ot["launches"] != expect:
+    if solver_launches(ot["launches"]) != expect:
         fail(f"use_of training launches {ot['launches']} != {expect}")
     if len(ms) != OF_TRAIN_EPOCHS or not finite:
         fail(f"use_of training metrics missing or non-finite: {ms}")
@@ -2500,7 +2593,7 @@ def main() -> None:
     if width != 315 or n_comp != 7:
         fail(f"explicit + meta-PD policy {width} wide with {n_comp} reward "
              f"components, expected 315 and 7")
-    if tr["launches"] != expect:
+    if solver_launches(tr["launches"]) != expect:
         fail(f"explicit + meta-PD training launches {tr['launches']} != {expect}")
     if [m["step"] for m in tr["metrics"]] != list(range(MODES_ITERS)):
         fail("explicit + meta-PD metrics stream not one line per iteration")
@@ -2556,7 +2649,7 @@ def main() -> None:
         f"envs (LTDL): with contacts {ms_on:.1f} ms ({ops_on} aten ops "
         f"dispatched), without {ms_off:.1f} ms ({ops_off})", tp)
     for k, (e, got, w) in off.items():
-        if got != w:
+        if solver_launches(got) != w:
             fail(f"contacts-off ({k}) launches {got} != {w}")
         if not e < PARITY_ATOL:
             fail(f"contacts-off ({k}) card vs CPU parity error {e:.3g}")

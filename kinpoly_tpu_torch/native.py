@@ -7,7 +7,8 @@ named by a hash of the sources and flags, so it is rebuilt whenever a source
 changes and reused otherwise. Nothing is built or loaded at import time.
 
 ``LAUNCHES`` counts kernel launches by name (multi-RHS kernels by name and
-width, ``name[R=r]``): each wrapper adds one where it launches its kernel,
+width, ``name[R=r]``; the kinematics kernel with the dof frames as
+``fk_tree[frames]``): each wrapper adds one where it launches its kernel,
 and nowhere else.
 """
 
@@ -41,6 +42,7 @@ _SIGNATURES = {
     "chol_solve_only": (_P, _P, _P, _I, _I, _I, _P),
     "chol_factor_solve": (_P, _P, _P, _P, _I, _I, _I, _P),
     "chol_apply": (_P, _P, _P, _I, _I, _I, _P),
+    "fk_tree": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 

@@ -100,8 +100,7 @@ class KinState(NamedTuple):
 
 
 def kin_state(st, qpos: torch.Tensor) -> KinState:
-    res = fklib.fk(st, qpos)
-    df = fklib.dof_frames(st, qpos, res)
+    res, df = fklib.fk_frames(st, qpos)
 
     # translational dofs 0-2 -> (0, e); rotational -> (a, p x a)
     is_trans = torch.zeros((df.axis.shape[-2], 1), dtype=qpos.dtype,

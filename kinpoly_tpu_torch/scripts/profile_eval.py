@@ -35,11 +35,13 @@ the profiler. The defaults of ``AR_DEFAULTS`` per config: kin_poly
 Prints the host wall time per control step, the device's busy share
 (union of kernel intervals over the profiled wall time), the trace's busy
 and idle ms, device activities, host-device synchronisations and the
-port's host counters (``profiling.COUNTS``: ``fk``, FK calls) per control
-step, the kernels and operators with the most device time, and a table
-of the port's spans (``utils/profiling.py``, on while profiling; their
-layers in ``GROUPS``): per control step, each span's calls and, of the
-work it did itself (not in a span nested in it), its device ms (the busy
+port's host counters (``profiling.COUNTS``: ``fk``, FK calls) and kernel
+launches (``native.LAUNCHES``; ``fk_tree`` and ``fk_tree[frames]``
+together equal ``fk`` on the card) per control step, the kernels and
+operators with the most device time, and a table of the port's spans
+(``utils/profiling.py``, on while profiling; their layers in
+``GROUPS``): per control step, each span's calls and, of the work it did
+itself (not in a span nested in it), its device ms (the busy
 union of the activities launched while it was the innermost span open),
 the device's idle ms while it was innermost on the host, its activities
 and host-device syncs; then the same summed by layer. The profiler's
@@ -60,6 +62,7 @@ import torch
 from torch.autograd.profiler_util import EventList
 from torch.profiler import ProfilerActivity, profile
 
+from kinpoly_tpu_torch import native
 from kinpoly_tpu_torch.config.defaults import UHCConfig
 from kinpoly_tpu_torch.scripts.eval_uhc import build_agent, get_takes
 from kinpoly_tpu_torch.scripts.train_uhc import build_trainer
@@ -211,6 +214,7 @@ def profiled(fn, steps: int, what: str, trace: str | None = None) -> None:
     print where its time went, per control step of its `steps`."""
     torch.cuda.synchronize()
     counts = Counter(profiling.COUNTS)
+    launches = Counter(native.LAUNCHES)
     profiling.enable(True)
     try:
         with profile(activities=[ProfilerActivity.CPU,
@@ -222,6 +226,7 @@ def profiled(fn, steps: int, what: str, trace: str | None = None) -> None:
     finally:
         profiling.enable(False)
     counts = profiling.COUNTS - counts
+    launches = native.LAUNCHES - launches
     events = prof.events()
     kernels = device_activities(events)
     busy = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
@@ -239,6 +244,8 @@ def profiled(fn, steps: int, what: str, trace: str | None = None) -> None:
         f"{n} {c / steps:.1f}" for n, c in syncs.items() if c))
     print("counters per step: " + ", ".join(
         f"{n} {c / steps:.1f}" for n, c in sorted(counts.items())))
+    print("kernel launches per step: " + ", ".join(
+        f"{n} {c / steps:.1f}" for n, c in sorted(launches.items())))
     ops = EventList([a for a in prof.key_averages()
                      if not a.is_user_annotation], use_device="cuda")
     key = "self_device_time_total" if hasattr(

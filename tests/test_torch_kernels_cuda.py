@@ -19,11 +19,16 @@ from kinpoly_tpu_torch.anim import spec as sp
 from kinpoly_tpu_torch.physics import contact as ct
 from kinpoly_tpu_torch.physics import dynamics as dyn
 from kinpoly_tpu_torch.physics import chol, chol_cuda, ltdl, ltdl_cuda, pgs_cuda
-from torch_trees import random_preorder_parents, tree_spd_packed
+from kinpoly_tpu_torch.physics import fk as fklib
+from torch_trees import (random_body_tree, random_preorder_parents,
+                         seeded_poses, tree_spd_packed)
 
 LTDL_ATOL = 1e-3            # as tests/test_pallas_ltdl.py:48,60
 PGS_RTOL, PGS_ATOL = 2e-4, 2e-5   # as tests/test_pallas_pgs.py:69
 CHOL_TOL = 5e-3             # as tests/test_pallas_chol.py:22-47
+# K5 against the plain float32 code on the card: bit for bit. The kernel
+# does the plain code's float32 operations one for one and in its order
+# (csrc/fk.cu), and a rounding step there can turn a contact on or off.
 
 pytestmark = pytest.mark.cuda
 
@@ -437,6 +442,95 @@ def test_chol_kernels_at_their_shared_memory_limit(spd):
     _chol_gate(X3, A, B, chol.apply(L, B))
 
 
+def _fk_case(st, qpos, frames):
+    """K5 once (one launch, counted) and the plain code on the card."""
+    key = "fk_tree[frames]" if frames else "fk_tree"
+    before = native.LAUNCHES[key]
+    got = fklib.fk_frames(st, qpos) if frames else (fklib.fk(st, qpos), None)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES[key] == before + 1
+    plain = fklib._fk_plain(st, qpos)
+    ref = tuple(plain) + (tuple(fklib.dof_frames(st, qpos, plain))
+                          if frames else ())
+    for g, r in zip(tuple(got[0]) + (tuple(got[1]) if frames else ()), ref):
+        assert g.shape == r.shape and g.dtype == r.dtype
+        assert torch.equal(g, r), float((g - r).abs().max())
+    return got
+
+
+@pytest.mark.parametrize("frames", [False, True])
+@pytest.mark.parametrize("n", [1, 31, 1024, 4097])
+def test_fk_kernel_env_counts(cuda, n, frames):
+    """One env, a block short of full, the cell's 1024 and a last block
+    with one env; unnormalised roots, hinge angles up to +-4 pi."""
+    st = sp.spec_tensors(sp.synthetic_spec(0), torch.float32, cuda)
+    q = seeded_poses(np.random.RandomState(n), n, 24)
+    _fk_case(st, torch.tensor(q, dtype=torch.float32, device=cuda), frames)
+
+
+@pytest.mark.parametrize("frames", [False, True])
+def test_fk_kernel_leading_dims_and_strides(cuda, frames):
+    """A (T, N) leading shape comes back as (T, N, ...); a non-contiguous
+    pose gives the outputs of its contiguous copy, which the wrapper
+    makes (the plain code's sums over a strided quaternion add in another
+    order, so there only its contiguous copy is the reference)."""
+    st = sp.spec_tensors(sp.synthetic_spec(0), torch.float32, cuda)
+    q = torch.tensor(seeded_poses(np.random.RandomState(11), 3 * 37, 24),
+                     dtype=torch.float32, device=cuda).reshape(3, 37, 76)
+    got = _fk_case(st, q, frames)
+    assert got[0].xpos.shape == (3, 37, 24, 3)
+    strided = q.reshape(-1, 76).t().contiguous().t()
+    assert not strided.is_contiguous()
+    again = (fklib.fk_frames(st, strided) if frames
+             else (fklib.fk(st, strided), None))
+    for a, b in zip(tuple(got[0]) + (tuple(got[1]) if frames else ()),
+                    tuple(again[0]) + (tuple(again[1]) if frames else ())):
+        assert torch.equal(a.reshape(b.shape), b)
+
+
+@pytest.mark.parametrize("frames", [False, True])
+@pytest.mark.parametrize("n_body,max_depth,seed",
+                         [(32, 32, 1), (32, 6, 2), (17, 4, 3), (2, 2, 4), (1, 1, 5)])
+def test_fk_kernel_other_trees(cuda, n_body, max_depth, seed, frames):
+    rng = np.random.RandomState(seed)
+    st = random_body_tree(rng, n_body, max_depth, torch.float32, cuda)
+    q = torch.tensor(seeded_poses(rng, 97, n_body), dtype=torch.float32,
+                     device=cuda)
+    _fk_case(st, q, frames)
+
+
+def test_fk_kernel_refuses_what_it_cannot_take(cuda):
+    rng = np.random.RandomState(6)
+    big = random_body_tree(rng, 33, 8, torch.float32, cuda)
+    q = torch.zeros(4, 7 + 3 * 32, device=cuda)
+    with pytest.raises(ValueError, match="33 bodies"):
+        fklib.fk(big, q)
+    st = random_body_tree(rng, 4, 4, torch.float32, cuda)._replace(
+        parents=(-1, 0, 3, 1))
+    with pytest.raises(ValueError, match="preorder"):
+        fklib.fk_frames(st, torch.zeros(4, 16, device=cuda))
+    st = sp.spec_tensors(sp.synthetic_spec(0), torch.float32, cuda)
+    with pytest.raises(ValueError, match="float32"):
+        fklib.fk(st, torch.zeros(4, 76, device=cuda, dtype=torch.float64))
+
+
+def test_fk_with_a_gradient_takes_the_plain_code(cuda):
+    """Under grad, a pose that requires one launches nothing and
+    back-propagates; under no_grad the same pose launches K5."""
+    st = sp.spec_tensors(sp.synthetic_spec(0), torch.float32, cuda)
+    q = torch.tensor(seeded_poses(np.random.RandomState(12), 8, 24),
+                     dtype=torch.float32, device=cuda, requires_grad=True)
+    before = dict(native.LAUNCHES)
+    res, df = fklib.fk_frames(st, q)
+    (fklib.fk(st, q).xipos.sum() + res.xpos.sum() + df.axis.sum()).backward()
+    torch.cuda.synchronize()
+    assert dict(native.LAUNCHES) == before
+    assert bool(torch.isfinite(q.grad).all()) and float(q.grad.abs().max()) > 0
+    with torch.no_grad():
+        fklib.fk(st, q)
+    assert native.LAUNCHES["fk_tree"] == before.get("fk_tree", 0) + 1
+
+
 def _chip_smoke():
     """The repo root's chip_smoke.py as a module (its helpers)."""
     path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
@@ -449,7 +543,8 @@ def _chip_smoke():
 def test_ar_control_step_on_the_card(cuda):
     """One control step of the AR env's physics (five movable objects,
     contact plan, compaction (16, 8)) on the card: 30 K1, 15 K2 at R = 1,
-    15 K2 at R = 49 and 15 K3 launches; humanoid and object state within
+    15 K2 at R = 49 and 15 K3 launches, and K5 once for the contact plan
+    and once with the frames in each substep; humanoid and object state within
     1e-3 of the CPU float64 plain path, with the box resting on each
     env's right hand."""
     from kinpoly_tpu_torch.config.defaults import uhc_control_params
@@ -484,7 +579,8 @@ def test_ar_control_step_on_the_card(cuda):
             torch.cuda.synchronize()
             assert dict(native.LAUNCHES) == {
                 "ltdl_factor": 30, "ltdl_solve[R=1]": 15,
-                "ltdl_solve[R=49]": 15, "pgs_solve": 15}
+                "ltdl_solve[R=49]": 15, "pgs_solve": 15,
+                "fk_tree": 1, "fk_tree[frames]": 15}
         outs.append([x.double().cpu() for x in s])
     err = max(float((a - b).abs().max()) for a, b in zip(*outs))
     assert all(bool(torch.isfinite(x).all()) for x in outs[0])

@@ -1,9 +1,11 @@
-"""Random trees in depth-first preorder and packed SPD systems on them, for
-the port's LTDL tests. Imports no JAX, so the GPU tests can use it."""
+"""Random trees in depth-first preorder, packed SPD systems on them and
+body trees with seeded poses, for the port's LTDL and kinematics tests.
+Imports no JAX, so the GPU tests can use it."""
 
 import numpy as np
 import torch
 
+from kinpoly_tpu_torch.anim.spec import SpecTensors
 from kinpoly_tpu_torch.physics import ltdl
 
 
@@ -37,3 +39,34 @@ def tree_spd_packed(rng, topo, n, zero_pivots=0, dtype=torch.float64,
         D[:, rng.choice(nv, zero_pivots, replace=False)] = 0.0
     M = np.einsum("nki,nk,nkj->nij", Lm, D, Lm)
     return ltdl.pack(topo, torch.tensor(M, dtype=dtype, device=device))
+
+
+def random_body_tree(rng, n_body, max_depth, dtype=torch.float64, device="cpu"):
+    """The kinematics' view of a random body tree in preorder: a
+    SpecTensors with random bone offsets and centres of mass (within
+    0.3 m) and unit masses."""
+    parents = random_preorder_parents(rng, n_body, max_depth)
+    t = lambda x: torch.as_tensor(x, dtype=dtype, device=device)
+    nv = 6 + 3 * (n_body - 1)
+    return SpecTensors(
+        parents=tuple(int(p) for p in parents),
+        parent_idx=torch.as_tensor(parents[1:], dtype=torch.int64,
+                                   device=device),
+        body_pos=t(rng.uniform(-0.3, 0.3, (n_body, 3))),
+        body_ipos=t(rng.uniform(-0.3, 0.3, (n_body, 3))),
+        body_mass=t(np.ones(n_body)),
+        body_inertia=t(np.tile(np.eye(3), (n_body, 1, 1))),
+        armature=t(np.zeros(nv)), mass_frac=t(np.full(n_body, 1.0 / n_body)))
+
+
+def seeded_poses(rng, n, n_body):
+    """n poses of an n_body tree: root position within 1 m, an
+    unnormalised root quaternion (norm 0.5 to 2), hinge angles up to
+    +-4 pi."""
+    q = np.zeros((n, 7 + 3 * (n_body - 1)))
+    q[:, :3] = rng.uniform(-1.0, 1.0, (n, 3))
+    root = rng.normal(0, 1, (n, 4))
+    q[:, 3:7] = root / np.linalg.norm(root, axis=1, keepdims=True) \
+        * rng.uniform(0.5, 2.0, (n, 1))
+    q[:, 7:] = rng.uniform(-4 * np.pi, 4 * np.pi, (n, 3 * (n_body - 1)))
+    return q
