@@ -35,6 +35,7 @@ from kinpoly_tpu_torch.physics import engine as eng
 from kinpoly_tpu_torch.physics import fk as fklib
 from kinpoly_tpu_torch.rl import rewards as rwlib
 from kinpoly_tpu_torch.rl import running_norm as rn
+from kinpoly_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -243,15 +244,16 @@ class HumanoidAREnv:
                                next_qpos)
         target, _ = self.target_frame(next_qpos)
         tgt_bquat = fklib.body_quat_sim(next_qpos)
-        cc_obs = self.cc_obs(prev_sim, target, fk_res=state.sim_fk)
-        cc_mean, cc_log_std = (self.cc_policy if cc_policy is None
-                               else cc_policy)(cc_obs)
-        if self.mode == "test":
-            cc_action = cc_mean
-        else:
-            cc_action = cc_mean + torch.exp(cc_log_std) * torch.randn(
-                cc_mean.shape, generator=generator, dtype=cc_mean.dtype,
-                device=cc_mean.device)
+        with span("ar.controller"):
+            cc_obs = self.cc_obs(prev_sim, target, fk_res=state.sim_fk)
+            cc_mean, cc_log_std = (self.cc_policy if cc_policy is None
+                                   else cc_policy)(cc_obs)
+            if self.mode == "test":
+                cc_action = cc_mean
+            else:
+                cc_action = cc_mean + torch.exp(cc_log_std) * torch.randn(
+                    cc_mean.shape, generator=generator, dtype=cc_mean.dtype,
+                    device=cc_mean.device)
 
         obj_qpos = None
         if model.scene is not None and not model.movable_objects:

@@ -389,6 +389,7 @@ class _ObjFrames(NamedTuple):
     a_smooth: torch.Tensor  # (..., n_obj, 6) gravity and gyroscopic accel
 
 
+@spanned("physics.objects")
 def _obj_frames(od: ObjDynParams, obj_qpos, obj_qvel) -> _ObjFrames:
     oq = obj_qpos[..., 3:7]
     Rm = tmath.quat_to_mat(oq)
@@ -478,14 +479,15 @@ def _contact_accel(model: PhysicsModel, state: SimState, ks: dyn.KinState,
     # the object side of every row, before compaction gathers it with J
     Jo = obj_rows = None
     if movable:
-        Jo_c, obj_rows_c = ct.object_jacobian(cs, of.com_w)
-        pad = J.shape[-2] - Jo_c.shape[-2]                 # limit rows
-        Jo = torch.nn.functional.pad(Jo_c, (0, 0, 0, pad))
-        obj_rows = torch.nn.functional.pad(obj_rows_c, (0, pad), value=-1)
-        if split_of:
-            Jo_f, obj_rows_f = ct.object_jacobian(fcs, of.com_w)
-            Jo = torch.cat([Jo, Jo_f], dim=-2)
-            obj_rows = torch.cat([obj_rows, obj_rows_f], dim=-1)
+        with span("physics.objects"):
+            Jo_c, obj_rows_c = ct.object_jacobian(cs, of.com_w)
+            pad = J.shape[-2] - Jo_c.shape[-2]                 # limit rows
+            Jo = torch.nn.functional.pad(Jo_c, (0, 0, 0, pad))
+            obj_rows = torch.nn.functional.pad(obj_rows_c, (0, pad), value=-1)
+            if split_of:
+                Jo_f, obj_rows_f = ct.object_jacobian(fcs, of.com_w)
+                Jo = torch.cat([Jo, Jo_f], dim=-2)
+                obj_rows = torch.cat([obj_rows, obj_rows_f], dim=-1)
 
     if model.compact_k is not None:
         J, depth, active, friction, row_live, Jo, obj_rows = _compact_rows(
@@ -503,19 +505,21 @@ def _contact_accel(model: PhysicsModel, state: SimState, ks: dyn.KinState,
         # the rows also see the objects' free motion: the object Delassus
         # block J_o M_o^-1 J_o^T (rows of one object), and the object
         # points' velocity and smooth acceleration along each row
-        n_obj = od.mass.shape[0]
-        onehot = (obj_rows[..., None] == torch.arange(
-            n_obj, device=device)).to(dtype)                  # (..., C, n_obj)
-        K_lin = Jo[..., :3] * (onehot @ of.minv)[..., None]
-        Iwi_r = torch.einsum("...rn,...nij->...rij", onehot, of.Iw_inv)
-        K_ang = torch.einsum("...rij,...rj->...ri", Iwi_r, Jo[..., 3:])
-        same = ((obj_rows[..., :, None] == obj_rows[..., None, :])
-                & (obj_rows >= 0)[..., :, None])
-        extra = dict(
-            A_extra=(torch.cat([K_lin, K_ang], dim=-1) @ Jo.transpose(-1, -2))
-            * same,
-            vel_extra=torch.sum(Jo * (onehot @ state.obj_qvel), dim=-1),
-            acc_smooth_extra=torch.sum(Jo * (onehot @ of.a_smooth), dim=-1))
+        with span("physics.objects"):
+            n_obj = od.mass.shape[0]
+            onehot = (obj_rows[..., None] == torch.arange(
+                n_obj, device=device)).to(dtype)              # (..., C, n_obj)
+            K_lin = Jo[..., :3] * (onehot @ of.minv)[..., None]
+            Iwi_r = torch.einsum("...rn,...nij->...rij", onehot, of.Iw_inv)
+            K_ang = torch.einsum("...rij,...rj->...ri", Iwi_r, Jo[..., 3:])
+            same = ((obj_rows[..., :, None] == obj_rows[..., None, :])
+                    & (obj_rows >= 0)[..., :, None])
+            extra = dict(
+                A_extra=(torch.cat([K_lin, K_ang], dim=-1)
+                         @ Jo.transpose(-1, -2)) * same,
+                vel_extra=torch.sum(Jo * (onehot @ state.obj_qvel), dim=-1),
+                acc_smooth_extra=torch.sum(Jo * (onehot @ of.a_smooth),
+                                           dim=-1))
 
     A, rhs, Dinv, Rr = ct.contact_system(J, MiJt, qacc, qvel, depth, active,
                                          row_live, **extra)
@@ -527,11 +531,12 @@ def _contact_accel(model: PhysicsModel, state: SimState, ks: dyn.KinState,
     if not movable:
         return qacc, None
     # the contact wrench about each object's CoM
-    w = torch.einsum("...rn,...r,...ri->...ni", onehot, f, Jo)
-    a_lin = w[..., :3] * of.minv[:, None] + of.a_smooth[..., :3]
-    a_ang = torch.einsum("...nij,...nj->...ni", of.Iw_inv, w[..., 3:]) \
-        + of.a_smooth[..., 3:]
-    return qacc, torch.cat([a_lin, a_ang], dim=-1)
+    with span("physics.objects"):
+        w = torch.einsum("...rn,...r,...ri->...ni", onehot, f, Jo)
+        a_lin = w[..., :3] * of.minv[:, None] + of.a_smooth[..., :3]
+        a_ang = torch.einsum("...nij,...nj->...ni", of.Iw_inv, w[..., 3:]) \
+            + of.a_smooth[..., 3:]
+        return qacc, torch.cat([a_lin, a_ang], dim=-1)
 
 
 @spanned("physics.substep")
@@ -612,16 +617,18 @@ def substep(model: PhysicsModel, state: SimState, ctrl_joint, vf, base_pos,
     if movable:
         # free-body semi-implicit Euler; the orientation integrates the
         # world angular velocity (a left product, unlike the humanoid's root)
-        u_new = state.obj_qvel + obj_acc * model.dt
-        if model.qvel_clip:
-            u_new = torch.clamp(u_new, -model.qvel_clip, model.qvel_clip)
-        v_origin = u_new[..., :3] + torch.linalg.cross(
-            u_new[..., 3:], obj_qpos[..., :3] - of.com_w)
-        quat_new = tmath.quat_norm(tmath.quat_mul(
-            tmath.quat_from_expmap(u_new[..., 3:] * model.dt), obj_qpos[..., 3:7]))
-        obj_qpos_new = torch.cat([obj_qpos[..., :3] + v_origin * model.dt,
-                                  quat_new], dim=-1)
-        obj_qvel_new = u_new
+        with span("physics.objects"):
+            u_new = state.obj_qvel + obj_acc * model.dt
+            if model.qvel_clip:
+                u_new = torch.clamp(u_new, -model.qvel_clip, model.qvel_clip)
+            v_origin = u_new[..., :3] + torch.linalg.cross(
+                u_new[..., 3:], obj_qpos[..., :3] - of.com_w)
+            quat_new = tmath.quat_norm(tmath.quat_mul(
+                tmath.quat_from_expmap(u_new[..., 3:] * model.dt),
+                obj_qpos[..., 3:7]))
+            obj_qpos_new = torch.cat([obj_qpos[..., :3] + v_origin * model.dt,
+                                      quat_new], dim=-1)
+            obj_qvel_new = u_new
 
     qvel_new = qvel + qacc * model.dt
     if model.qvel_clip:

@@ -22,6 +22,7 @@ from kinpoly_tpu_torch.envs.humanoid_ar import AREnvState, HumanoidAREnv
 from kinpoly_tpu_torch.envs.humanoid_im import select
 from kinpoly_tpu_torch.models import nets
 from kinpoly_tpu_torch.models.policy_ar import PolicyAR
+from kinpoly_tpu_torch.utils.profiling import span
 
 
 class ARTrajectory(NamedTuple):
@@ -65,12 +66,14 @@ def make_ar_rollout(env: HumanoidAREnv, policy: PolicyAR, n_steps: int,
         T_ctx = the_ctx.qpos.shape[1]
         traj = None
         for t in range(n_steps):
-            gru, mean = policy.action_mean(carry.gru, carry.obs)
-            log_std = torch.full_like(mean, policy.log_std)
-            action = mean if mean_action else mean + torch.exp(log_std) * (
-                torch.randn(mean.shape, generator=generator,
-                            dtype=mean.dtype, device=mean.device))
-            log_prob = nets.gaussian_log_prob(action, mean, log_std)
+            with span("ar.kin_policy"):
+                gru, mean = policy.action_mean(carry.gru, carry.obs)
+                log_std = torch.full_like(mean, policy.log_std)
+                action = mean if mean_action else mean + torch.exp(
+                    log_std) * torch.randn(mean.shape, generator=generator,
+                                           dtype=mean.dtype,
+                                           device=mean.device)
+                log_prob = nets.gaussian_log_prob(action, mean, log_std)
             es = carry.env_state
             gt_qpos = the_ctx.qpos[es.clip_idx,
                                    torch.clamp(es.cur_t + 1, max=T_ctx - 1)]

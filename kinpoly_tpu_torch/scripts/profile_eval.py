@@ -11,7 +11,7 @@ an evaluation loop, or over one training iteration or epoch.
         [--cfg use_of] [--data BANK] [--ar-iter N --out DIR]
     python -m kinpoly_tpu_torch.scripts.profile_eval --ar-train \
         [--cfg use_of] [--data BANK] [--ar-iter N --out DIR] \
-        [--n-envs 64] [--steps 156]
+        [--n-envs 320] [--steps 32]
 
 Evaluation: one env per take, ``--steps`` control steps. ``--train``: one
 ``train_epoch`` of ``--n-envs`` envs x ``--steps`` control steps (rollout,
@@ -22,10 +22,12 @@ evaluation of ``eval_ar_policy`` under the named config ``--cfg``
 ``--uhc-checkpoint``, one env per take of the config's wild bank by
 default), ``--steps`` control steps after a 2-step warm-up.
 ``--ar-train``: composite epochs of ``train_ar_policy`` with the joint
-controller (the config's widths, ``--n-envs`` envs, 64 by default, on
-its training bank from checkpoint ``--ar-iter``, which is read and not
+controller (the config's widths, ``--n-envs`` envs x ``--steps`` control
+steps: kin_poly 320 x 32 by default, the benchmark cell
+``kin_poly.train.e320x32``'s 10,240-sample epoch, use_of its config's;
+on its training bank from checkpoint ``--ar-iter``, which is read and not
 written): after a warm-up epoch of 4 control steps, one of ``--steps``
-control steps (the config's rollout_steps) timed per phase (context,
+control steps timed per phase (context,
 rollout, PPO, BC, controller) with its peak memory, then one of 8 under
 the profiler. The defaults of ``AR_DEFAULTS`` per config: kin_poly
 ``iter_0800.p`` under ``results_r5`` on ``wild_takes_r5.pkl`` and
@@ -76,6 +78,9 @@ AR_DEFAULTS = {
     "use_of": ("data_bank/wild_takes_r5_of.pkl",
                "data_bank/action_takes_of.pkl", 0, "results_r4"),
 }
+# per named config: the AR training epoch's (envs, control steps) by
+# default, where it is not the config's own
+AR_TRAIN_SHAPE = {"kin_poly": (320, 32)}
 _SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
                "cudaMemcpy", "cudaMemcpyAsync", "cudaEventSynchronize")
 
@@ -106,7 +111,11 @@ GROUPS = {
     "uhc.update": "ppo", "ppo.update": "ppo",
     "optim.step": "optim",
     "ar.context": "ar", "ar.rollout": "ar", "ar.ppo": "ar", "ar.bc": "ar",
-    "ar.controller": "ar",
+    "ar.kin_policy": "kin_policy",
+    # the frozen controller's step in the env, and the joint-controller
+    # phase of the update (the agent's ``_phase("controller")``)
+    "ar.controller": "controller",
+    "physics.objects": "objects",
 }
 NO_SPAN = "(no span)"
 
@@ -267,7 +276,7 @@ def profiled(fn, steps: int, what: str, trace: str | None = None) -> None:
 
 
 def profile_ar_train(args) -> None:
-    """A warm-up epoch of 4 control steps; one epoch at `--steps` (156)
+    """A warm-up epoch of 4 control steps; one epoch at `--steps` (32)
     timed per phase; one epoch of AR_PROFILE_STEPS under the profiler
     (a whole epoch's ~5 million device activities overwhelm it)."""
     import dataclasses
@@ -279,8 +288,9 @@ def profile_ar_train(args) -> None:
     from kinpoly_tpu_torch.scripts import train_ar_policy as tap
 
     cfg = KinPolyConfig.named(args.cfg)
-    steps = args.steps or cfg.rollout_steps
-    n_envs = args.n_envs or cfg.n_envs
+    n_envs, steps = AR_TRAIN_SHAPE.get(args.cfg,
+                                       (cfg.n_envs, cfg.rollout_steps))
+    n_envs, steps = args.n_envs or n_envs, args.steps or steps
     tc = dataclasses.replace(cfg.train_config(), joint_controller=True,
                              n_envs=n_envs, rollout_steps=steps)
     takes = tap.get_takes(synthetic_spec(with_objects=True),
@@ -324,7 +334,7 @@ def main(argv=None):
     p.add_argument("--clips", type=int, default=None)
     p.add_argument("--frames", type=int, default=None)
     p.add_argument("--n-envs", type=int, default=None,
-                   help="training envs (UHC 1024, AR kin_poly.yml's 64)")
+                   help="training envs (UHC 1024, AR kin_poly 320)")
     p.add_argument("--steps", type=int, default=None,
                    help="control steps (evaluation 3, training 8)")
     p.add_argument("--seed", type=int, default=0)
